@@ -22,6 +22,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without them)"
+    )
+
+
 @pytest.fixture(autouse=True)
 def _isolate_tpu_lease(tmp_path, monkeypatch):
     """Point the chip-handoff busy file at a per-test path so tests that
