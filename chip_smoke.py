@@ -8,20 +8,28 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases, in order; any failure exits non-zero with no result line:
 
 1. Device: the card's name and power limit (nvidia-smi), TF32 off.
-2. Build: every CUDA kernel of the image path, from ``ops/csrc``.
+2. Build: every CUDA kernel of the port, from ``ops/csrc``.
 3. Kernel checks: each kernel against its plain PyTorch version on the
    card at SigLIP SO400M/14@384 shapes with B=2 and again with B=128
    (stated tolerances), then timed at B=128 (CUDA events, median) beside
    its plain version, one PyTorch library call for the same function,
-   and its bound.
-4. Main path at full SO400M width (27 layers, random weights from a
-   seed): an EmbeddingEngine behind the service's InferenceWorker answers
-   requests of 1, 7 and 16 images at 384x384 and one at 500x400 (the
-   on-device resize), and every kernel's launch count must match the
-   buckets run. Then one B=128 batch is timed through the engine. All
-   outputs must be finite and unit-norm, and three embeddings (two from
-   the requests, one from the timed batch) must agree (cos >= 0.999)
-   with the same weights run on the CPU through the plain versions.
+   and its bound. The image kernels run at the image tower's shapes; the
+   fused attention kernel at the text tower's (B, 64, 16, 72), in all
+   three stable modes at B=2, and once more at S=729, B=2.
+4. Main path at full SO400M width (27 layers per tower, random weights
+   from a seed, the hash tokenizer): one EmbeddingEngine holds both
+   towers behind the service's InferenceWorker.
+   - Images: requests of 1, 7 and 16 images at 384x384 and one at
+     500x400 (the on-device resize); every image kernel's launch count
+     must match the buckets run, and the text kernel must not launch.
+     Then one B=128 batch is timed through the engine.
+   - Texts: requests of 1, 7 and 16 strings; the fused attention kernel
+     must launch 27 times per bucket and no image kernel at all. Then a
+     256-text request (two buckets of 128) is timed three times, and
+     one text layer's parts are timed at B=128.
+   All outputs must be finite and unit-norm, and three embeddings of
+   each tower must agree (cos >= 0.999) with the same weights run on the
+   CPU through the plain versions.
 5. One JSON line with every kernel's numbers, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -67,7 +75,11 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
+def time_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
+    """Median over ``reps`` of the card's time per call: CUDA events
+    around ``inner`` back-to-back calls. A spin kernel queued first holds
+    the stream while the host enqueues them, so the window holds the
+    card's work and not the host's launch overhead."""
     import torch
 
     for _ in range(warmup):
@@ -76,11 +88,13 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000 * inner)  # about 0.1 ms per call at 1.98 GHz
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -139,6 +153,8 @@ def main() -> int:
     S = cfg.num_patches
     SP = ((S + 15) // 16) * 16
     M_REAL = cfg.mlp_dim
+    TS, TH = cfg.text_len, cfg.text_num_heads
+    TDH = cfg.text_width // TH
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     def rn(*shape, std=1.0):
@@ -165,7 +181,9 @@ def main() -> int:
         return x, qkvf, attn_out
 
     # name -> (kernel call, plain call, library call, flops, bytes,
-    #          tolerance, rows compared: None for all, S for valid rows)
+    #          tolerance, rows compared: None for all rows with rtol = atol
+    #          = tolerance; an int for attention, the first rows (the
+    #          valid ones), atol only)
     def cases(b):
         x, qkvf, attn_out = inputs(b)
         m = b * SP
@@ -173,6 +191,7 @@ def main() -> int:
         qh = qkvf[..., :HC].reshape(b, SP, H, C)[..., :DH].permute(0, 2, 1, 3).contiguous()
         kh = qkvf[..., HC : 2 * HC].reshape(b, SP, H, C)[..., :DH].permute(0, 2, 1, 3).contiguous()
         vh = qkvf[..., 2 * HC :].reshape(b, SP, H, C)[..., :DH].permute(0, 2, 1, 3).contiguous()
+        qf, kf, vf = (qkvf[..., i * HC : (i + 1) * HC].contiguous() for i in range(3))
         key_ok = (torch.arange(SP, device=dev) < S)[None, None, None, :]
         el = 2  # bytes per bf16
         return {
@@ -200,6 +219,15 @@ def main() -> int:
                 el * (m * 3 * HC + m * H * DH),
                 ATTN_TOL, S,
             ),
+            # the unpacked wrapper: the same kernel over three separate arrays
+            "fat_vit_mha": (
+                lambda: attention.fat_vit_mha(qf, kf, vf, H, DH),
+                lambda: attention.fat_vit_mha_plain(qf, kf, vf, H, DH),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok),
+                4.0 * b * H * SP * SP * C,
+                el * (m * 3 * HC + m * H * DH),
+                ATTN_TOL, S,
+            ),
             "matmul_residual": (
                 lambda: fused.matmul_residual(attn_out, attn_p["o"]["w"], attn_p["o"]["b"], x),
                 lambda: fused.matmul_residual_plain(attn_out, attn_p["o"]["w"], attn_p["o"]["b"], x),
@@ -221,7 +249,27 @@ def main() -> int:
                 el * (2 * m * D + 2 * D * M_REAL + M_REAL + 3 * D),
                 CHECK_TOL, None,
             ),
-        }, (qkvf,)
+        }
+
+    def text_cases(b, s):
+        """The fused attention kernel at the text tower's shapes: q/k/v
+        (B, s, 16, 72) as the text encoder's projections give them, in
+        the stable mode mha() uses ("scalar"). Every row is compared,
+        atol only."""
+        tq, tk, tv = (rn(b, s, TH, TDH) for _ in range(3))
+        el = 2
+        return {
+            "fused_mha": (
+                lambda: attention.fused_mha(tq, tk, tv),
+                lambda: attention.fused_mha_plain(tq, tk, tv),
+                lambda: F.scaled_dot_product_attention(
+                    tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2)
+                ),
+                4.0 * b * TH * s * s * TDH,
+                el * 4 * b * s * TH * TDH,
+                ATTN_TOL, s,
+            ),
+        }
 
     def check(name, b, kern, plain, tol, rows) -> float:
         got, want = kern(), plain()
@@ -234,31 +282,42 @@ def main() -> int:
             fail(f"{name} disagrees with its plain version at B={b}: max_abs_err {err}")
         return err
 
+    def all_cases(b):
+        return {**cases(b), **text_cases(b, TS)}
+
     results = {}
-    small, (qkvf_small,) = cases(B_CHECK)
+    small = all_cases(B_CHECK)
     for name, (kern, plain, _lib, _f, _b, tol, rows) in small.items():
         err = check(name, B_CHECK, kern, plain, tol, rows)
         results[name] = {"max_abs_err": err, "tolerance": tol}
-    # the unpacked wrapper: the same kernel over three separate arrays
-    qf, kf, vf = (qkvf_small[..., i * HC : (i + 1) * HC].contiguous() for i in range(3))
-    got = attention.fat_vit_mha(qf, kf, vf, H, DH)
-    want = attention.fat_vit_mha_plain(qf, kf, vf, H, DH)
-    torch.cuda.synchronize()
-    err, _ = compare(got, want, ATTN_TOL, S)
-    log(f"check fat_vit_mha (unpacked) B={B_CHECK}: max_abs_err {err:.3e} (tol {ATTN_TOL})")
-    if not err <= ATTN_TOL:
-        fail(f"fat_vit_mha disagrees with its plain version: {err}")
-    results["fat_vit_mha_packed"]["unpacked_max_abs_err"] = err
-    del small, qkvf_small, qf, kf, vf, got, want
+    # the fused attention kernel's other stable modes, and the longest
+    # sequence mha() sends it on the main paths' towers (S=729, the image
+    # tower's attn_impl="xla" route: more than one query block per head)
+    tq, tk, tv = (rn(B_CHECK, TS, TH, TDH) for _ in range(3))
+    for stable in ("row", "none"):
+        results["fused_mha"][f"max_abs_err_{stable}"] = check(
+            f"fused_mha[{stable}]", B_CHECK,
+            lambda: attention.fused_mha(tq, tk, tv, stable),
+            lambda: attention.fused_mha_plain(tq, tk, tv, stable), ATTN_TOL, TS,
+        )
+    lq, lk, lv = (rn(B_CHECK, S, TH, TDH) for _ in range(3))
+    for stable in ("scalar", "row"):
+        results["fused_mha"][f"max_abs_err_s{S}_{stable}"] = check(
+            f"fused_mha[S={S}, {stable}]", B_CHECK,
+            lambda: attention.fused_mha(lq, lk, lv, stable),
+            lambda: attention.fused_mha_plain(lq, lk, lv, stable), ATTN_TOL, S,
+        )
+    del small, tq, tk, tv, lq, lk, lv
     torch.cuda.empty_cache()
 
-    big = cases(B_TIME)[0]
+    big = all_cases(B_TIME)
     for name, (kern, plain, lib, flops, nbytes, tol, rows) in big.items():
         # the timed launch geometry is held against the plain version too
         results[name]["max_abs_err_b128"] = check(name, B_TIME, kern, plain, tol, rows)
-        t_k = time_ms(kern, reps=10)
-        t_p = time_ms(plain, reps=3)
-        t_l = time_ms(lib, reps=10)
+        inner = 20 if name == "fused_mha" else 1  # a kernel of tens of microseconds
+        t_k = time_ms(kern, reps=10, inner=inner)
+        t_p = time_ms(plain, reps=3, inner=inner)
+        t_l = time_ms(lib, reps=10, inner=inner)
         t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
         results[name].update(
             ms=t_k, plain_ms=t_p, library_ms=t_l,
@@ -273,53 +332,54 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. main path at full width -----------------------------------------
+    from meme_search_engine_tpu_torch.serving.engine import pow2_buckets
+
     t0 = time.perf_counter()
     mem0 = torch.cuda.memory_allocated()
     params = siglip.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    n_img_params = siglip.param_count(params["img"])
+    n_params = {k: siglip.param_count(params[k]) for k in ("img", "txt")}
     engine = EmbeddingEngine(params, cfg, max_batch=128, device="cuda")
     del params
-    log(f"main path: SO400M params {n_img_params / 1e6:.1f} M "
-        f"(image tower) built in {time.perf_counter() - t0:.1f} s; the engine's "
-        f"weights take {(torch.cuda.memory_allocated() - mem0) / 2**30:.3f} GiB "
-        f"on the card ({mem0 / 2**30:.3f} GiB allocated before)")
+    log(f"main path: SO400M params {n_params['img'] / 1e6:.1f} M (image tower), "
+        f"{n_params['txt'] / 1e6:.1f} M (text tower), built in "
+        f"{time.perf_counter() - t0:.1f} s; the engine's weights take "
+        f"{(torch.cuda.memory_allocated() - mem0) / 2**30:.3f} GiB on the card "
+        f"({mem0 / 2**30:.3f} GiB allocated before); tokenizer "
+        f"{type(engine.tokenizer).__name__}")
     worker = InferenceWorker(engine, "siglip-so400m/14@384")
     rng = np.random.default_rng(0)
     r = cfg.image_size
-    requests = [
-        rng.integers(0, 256, (1, r, r, 3), dtype=np.uint8),
-        rng.integers(0, 256, (7, r, r, 3), dtype=np.uint8),
-        rng.integers(0, 256, (16, r, r, 3), dtype=np.uint8),
-        rng.integers(0, 256, (1, 500, 400, 3), dtype=np.uint8),
-    ]
-    from meme_search_engine_tpu_torch.serving.engine import pow2_buckets
-
-    n_buckets = sum(len(pow2_buckets(len(x), 128)) for x in requests)
     done: "queue.Queue" = queue.Queue()
-    fused.reset_launches()
-    attention.reset_launches()
-    t0 = time.perf_counter()
-    for i, imgs in enumerate(requests):
-        worker.submit("image", imgs, lambda ok, v, i=i: done.put((i, ok, v)))
-    outs = {}
-    for _ in requests:
-        i, ok, v = done.get(timeout=600)
-        if not ok:
-            fail(f"request {i} failed: {v}")
-        outs[i] = v
-    counts = {**fused.launches, **attention.launches}
-    log(f"main path: {len(requests)} requests, {n_buckets} buckets, "
-        f"{time.perf_counter() - t0:.1f} s, launches {counts}")
-    worker.stop(timeout=60)
-    per_bucket = {
-        "ln_matmul": cfg.depth + 1,
-        "matmul_residual": cfg.depth,
-        "ln_mlp_residual": cfg.depth,
-        "fat_vit_mha": cfg.depth,
-    }
-    for k, n in per_bucket.items():
-        if counts[k] != n * n_buckets:
-            fail(f"{k} launched {counts[k]} times on the main path, expected {n * n_buckets}")
+
+    def launch_counts():
+        return {**fused.launches, **attention.launches}
+
+    def serve(kind, requests):
+        """Submit every request to the worker with the counts set to 0;
+        returns the outputs and the launch counts of this run."""
+        fused.reset_launches()
+        attention.reset_launches()
+        t0 = time.perf_counter()
+        for i, payload in enumerate(requests):
+            worker.submit(kind, payload, lambda ok, v, i=i: done.put((i, ok, v)))
+        outs = {}
+        for _ in requests:
+            i, ok, v = done.get(timeout=600)
+            if not ok:
+                fail(f"{kind} request {i} failed: {v}")
+            outs[i] = v
+        counts = launch_counts()
+        n_buckets = sum(len(pow2_buckets(len(x), engine.max_batch)) for x in requests)
+        log(f"main path ({kind}): {len(requests)} requests, {n_buckets} buckets, "
+            f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+        return outs, counts, n_buckets
+
+    def check_counts(kind, counts, per_bucket, n_buckets):
+        for k, n in per_bucket.items():
+            if counts[k] != n * n_buckets:
+                fail(f"{k} launched {counts[k]} times on the {kind} path, "
+                     f"expected {n * n_buckets}")
+
     def check_embeddings(what, e, n):
         if e.shape != (n, cfg.d_emb) or not np.isfinite(e).all():
             fail(f"{what}: bad output shape {e.shape} or non-finite values")
@@ -327,10 +387,43 @@ def main() -> int:
         if np.abs(nrm - 1).max() > 1e-3:
             fail(f"{what}: norms {nrm}")
 
+    # images
+    requests = [
+        rng.integers(0, 256, (1, r, r, 3), dtype=np.uint8),
+        rng.integers(0, 256, (7, r, r, 3), dtype=np.uint8),
+        rng.integers(0, 256, (16, r, r, 3), dtype=np.uint8),
+        rng.integers(0, 256, (1, 500, 400, 3), dtype=np.uint8),
+    ]
+    outs, counts, n_buckets = serve("image", requests)
+    check_counts("image", counts, {
+        "ln_matmul": cfg.depth + 1,
+        "matmul_residual": cfg.depth,
+        "ln_mlp_residual": cfg.depth,
+        "fat_vit_mha": cfg.depth,
+        "fused_mha": 0,
+    }, n_buckets)
     for i, imgs in enumerate(requests):
-        check_embeddings(f"request {i}", outs[i], len(imgs))
+        check_embeddings(f"image request {i}", outs[i], len(imgs))
 
-    # one full batch through the engine
+    # texts: as a user types them, through the hash tokenizer
+    words = ["meme", "cat", "dog", "gpu", "tpu", "funny", "sad", "frog", "reaction", "image"]
+    text_requests = [
+        [" ".join(rng.choice(words, size=rng.integers(1, 12))) for _ in range(n)]
+        for n in (1, 7, 16)
+    ]
+    text_outs, text_counts, n_text_buckets = serve("text", text_requests)
+    check_counts("text", text_counts, {
+        "fused_mha": cfg.text_depth,
+        "ln_matmul": 0,
+        "matmul_residual": 0,
+        "ln_mlp_residual": 0,
+        "fat_vit_mha": 0,
+    }, n_text_buckets)
+    for i, texts in enumerate(text_requests):
+        check_embeddings(f"text request {i}", text_outs[i], len(texts))
+    worker.stop(timeout=60)
+
+    # one full image batch through the engine
     batch = rng.integers(0, 256, (B_TIME, r, r, 3), dtype=np.uint8)
     engine.embed_image_arrays(batch)  # warm the allocator at this size
     fused.reset_launches()
@@ -342,25 +435,72 @@ def main() -> int:
         batch_out = engine.embed_image_arrays(batch)
         times.append(time.perf_counter() - t0)
     batch_ms = float(np.median(times)) * 1e3
-    per_batch = {k: v // 3 for k, v in {**fused.launches, **attention.launches}.items()}
+    per_batch = {k: v // 3 for k, v in launch_counts().items()}
     check_embeddings(f"batch of {B_TIME}", batch_out, B_TIME)
 
-    # the same weights on the CPU, through the plain versions: one image of
-    # a small request, the resized one, and one of the timed batch of 128
-    cpu_engine = EmbeddingEngine(engine.params, cfg, max_batch=1, device="cpu")
-    coss = []
-    for what, img, card in (
-        ("request 1 image 3", requests[1][3:4], outs[1][3]),
-        ("request 3 image 0", requests[3][0:1], outs[3][0]),
-        (f"batch of {B_TIME} image 77", batch[77:78], batch_out[77]),
-    ):
+    # a 256-text request: two buckets of 128
+    n_text = 2 * B_TIME
+    text_batch = [" ".join(rng.choice(words, size=rng.integers(1, 20))) for _ in range(n_text)]
+    engine.embed_texts(text_batch)  # warm the allocator at this size
+    attention.reset_launches()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cos = float(cpu_engine.embed_image_arrays(img)[0] @ card)
-        coss.append(cos)
-        log(f"cpu reference: {what} {img.shape}: cos {cos:.6f} "
-            f"({time.perf_counter() - t0:.1f} s on the CPU)")
+        text_out = engine.embed_texts(text_batch)
+        times.append(time.perf_counter() - t0)
+    text_ms = float(np.median(times)) * 1e3
+    text_launches = attention.launches["fused_mha"] // 3
+    check_embeddings(f"text request of {n_text}", text_out, n_text)
+    text_buckets = len(pow2_buckets(n_text, engine.max_batch))
+    if text_launches != text_buckets * cfg.text_depth:
+        fail(f"fused_mha launched {text_launches} times per {n_text} texts, "
+             f"expected {text_buckets * cfg.text_depth}")
+
+    # one text layer's parts at B=128 (the engine's layer-0 weights), each
+    # timed as the encoder runs it; x stands in for the residual stream
+    blk = siglip._layer(engine.params["txt"]["blocks"], 0)
+    x = rn(B_TIME, TS, cfg.text_width)
+    parts = {
+        "layer_norm": (2, lambda: siglip._layer_norm(x, blk["ln1"])),
+        "dense q,k,v,o": (4, lambda: siglip._dense(x, blk["attn"]["q"])),
+        "mlp (fc1, gelu, fc2)": (1, lambda: siglip._mlp(x, blk["mlp"])),
+        "residual add": (2, lambda: x + x),
+    }
+    split = {k: n * time_ms(fn, reps=5) * cfg.text_depth for k, (n, fn) in parts.items()}
+    split["fused_mha"] = results["fused_mha"]["ms"] * cfg.text_depth
+    split_total = sum(split.values())
+    text_kernel_ms = results["fused_mha"]["ms"] * text_launches
+    del x, blk
+
+    # the same weights on the CPU, through the plain versions: one image of
+    # a small request, the resized one, and one of the timed batch of 128;
+    # likewise three texts
+    cpu_engine = EmbeddingEngine(engine.params, cfg, max_batch=1, device="cpu")
+
+    def cpu_check(what, embed, item, card):
+        t0 = time.perf_counter()
+        cos = float(embed(item)[0] @ card)
+        log(f"cpu reference: {what}: cos {cos:.6f} ({time.perf_counter() - t0:.1f} s on the CPU)")
         if not cos >= 0.999:
             fail(f"card and CPU embeddings disagree on {what}: cos {cos}")
+        return cos
+
+    coss = [
+        cpu_check("request 1 image 3", cpu_engine.embed_image_arrays, requests[1][3:4], outs[1][3]),
+        cpu_check("request 3 image 0 (500x400)", cpu_engine.embed_image_arrays,
+                  requests[3][0:1], outs[3][0]),
+        cpu_check(f"batch of {B_TIME} image 77", cpu_engine.embed_image_arrays,
+                  batch[77:78], batch_out[77]),
+    ]
+    text_coss = [
+        cpu_check("text request 0 text 0", cpu_engine.embed_texts,
+                  text_requests[0][:1], text_outs[0][0]),
+        cpu_check("text request 1 text 5", cpu_engine.embed_texts,
+                  text_requests[1][5:6], text_outs[1][5]),
+        cpu_check(f"text request of {n_text} text 200", cpu_engine.embed_texts,
+                  text_batch[200:201], text_out[200]),
+    ]
     del cpu_engine
     kernel_ms = sum(
         results[k]["ms"] * per_batch[k]
@@ -369,32 +509,48 @@ def main() -> int:
         + results["fat_vit_mha_packed"]["ms"] * per_batch["fat_vit_mha"]
     log(f"engine B={B_TIME}: {batch_ms:.1f} ms/batch (median of 3), "
         f"{B_TIME / batch_ms * 1e3:.1f} images/s; kernels' share (from their timed "
-        f"ms x launches) {kernel_ms:.1f} ms = {kernel_ms / batch_ms:.1%}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        f"ms x launches) {kernel_ms:.1f} ms = {kernel_ms / batch_ms:.1%}")
+    log(f"engine texts: {n_text} texts in {text_ms:.1f} ms (median of 3), "
+        f"{n_text / text_ms * 1e3:.1f} texts/s; fused_mha's share (timed ms x "
+        f"{text_launches} launches) {text_kernel_ms:.2f} ms = {text_kernel_ms / text_ms:.1%}")
+    log(f"text layer split per bucket of {B_TIME} (ms, {cfg.text_depth} layers): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items())
+        + f"; sum {split_total:.1f} ms of {text_ms / text_buckets:.1f} ms per bucket")
+    log(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     # -- 5. result lines ----------------------------------------------------
     src = "meme_search_engine_tpu_torch/ops/csrc/"
     meta = {
-        "ln_matmul": ("gemm.cu", "meme_search_engine_tpu/ops/fused.py:108", "ln_matmul"),
-        "matmul_residual": ("gemm.cu", "meme_search_engine_tpu/ops/fused.py:163", "matmul_residual"),
-        "ln_mlp_residual": ("gemm.cu", "meme_search_engine_tpu/ops/fused.py:302", "ln_mlp_residual"),
-        "fat_vit_mha_packed": ("fat_attention.cu", "meme_search_engine_tpu/ops/attention.py:364", "fat_vit_mha"),
+        "ln_matmul": ("gemm.cu", "meme_search_engine_tpu/ops/fused.py:108", "ln_matmul", counts),
+        "matmul_residual": ("gemm.cu", "meme_search_engine_tpu/ops/fused.py:163", "matmul_residual", counts),
+        "ln_mlp_residual": ("gemm.cu", "meme_search_engine_tpu/ops/fused.py:302", "ln_mlp_residual", counts),
+        "fat_vit_mha_packed": ("fat_attention.cu", "meme_search_engine_tpu/ops/attention.py:364",
+                               "fat_vit_mha", counts),
+        "fused_mha": ("mha.cu", "meme_search_engine_tpu/ops/attention.py:154", "fused_mha",
+                      text_counts),
     }
     keys = ("max_abs_err", "max_abs_err_b128", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name, (source, replaces, counter) in meta.items():
+    for name, (source, replaces, counter, run_counts) in meta.items():
         e = {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-             "launches": counts[counter]}
+             "launches": run_counts[counter]}
         e.update({k: results[name][k] for k in keys})
         if name == "ln_matmul":
             e["map_kv"] = {k: results["ln_matmul[map_kv]"][k] for k in keys}
         if name == "fat_vit_mha_packed":
-            e["unpacked_max_abs_err"] = results[name]["unpacked_max_abs_err"]
+            # fat_vit_mha (attention.py:321): the same kernel, other strides
+            e["unpacked"] = {"replaces": "meme_search_engine_tpu/ops/attention.py:321",
+                             **{k: results["fat_vit_mha"][k] for k in keys}}
+        if name == "fused_mha":
+            e.update({k: v for k, v in results[name].items() if k.startswith("max_abs_err_")})
         kernels.append(e)
     print(json.dumps({
         "kernels": kernels,
         "engine": {"batch": B_TIME, "ms": batch_ms, "images_per_s": B_TIME / batch_ms * 1e3,
                    "kernel_ms": kernel_ms, "cpu_cos": coss},
+        "text": {"texts": n_text, "ms": text_ms, "texts_per_s": n_text / text_ms * 1e3,
+                 "fused_mha_ms": text_kernel_ms, "layer_split_ms_per_bucket": split,
+                 "cpu_cos": text_coss},
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,34 +1,45 @@
-"""SigLIP image tower in PyTorch, served through the port's CUDA kernels.
+"""SigLIP two-tower encoder in PyTorch, served through the port's CUDA kernels.
 
 Counterpart of ``meme_search_engine_tpu/models/siglip.py``: the same
 configs, the same parameter tree (nested dicts of tensors, per-layer
 weights stacked on a leading depth axis) and the same math with the same
-bf16 cast points. ``encode_image`` always takes the fat-layout path
-(packed QKV projection with a constant column per head, see
-``ops/attention.py``): on the card that layout is plain arithmetic, not a
-TPU lane rule. Each encoder layer runs four kernels: ``ln_matmul``
-(LN1 + packed QKV + key mask), ``fat_vit_mha_packed``,
-``matmul_residual`` (o-projection + residual) and ``ln_mlp_residual``;
-the MAP head runs ``ln_matmul`` once more. Everything else (resize,
-patch embedding, probe attention, MAP MLP, L2 norm) is plain torch, as
-it is XLA in the reference.
+bf16 cast points.
 
-Parameters are random-init (``init_params``) or converted from the JAX
-package's tree (``models/convert.py``). ``prepare_params`` replaces the
-image tower's leaves with the kernel layouts once at load time.
+- ``encode_image`` takes the fat-layout path unless ``cfg.attn_impl`` is
+  "xla" (packed QKV projection with a constant column per head, see
+  ``ops/attention.py``): on the card that layout is plain arithmetic, not
+  a TPU lane rule. Each encoder layer runs four kernels: ``ln_matmul``
+  (LN1 + packed QKV + key mask), ``fat_vit_mha_packed``,
+  ``matmul_residual`` (o-projection + residual) and ``ln_mlp_residual``;
+  the MAP head runs ``ln_matmul`` once more. With "xla" it runs the plain
+  encoder below and the non-fat MAP head, as the JAX package does.
+- ``encode_text`` runs the plain pre-LN encoder (``_encoder``), whose
+  self-attention goes through ``ops.attention.mha``: the fused attention
+  kernel (``csrc/mha.cu``) on the card, as ``fused_mha_pallas`` on the TPU.
+
+Everything else (resize, patch embedding, dense layers, LayerNorm, MLP,
+probe attention, L2 norm) is plain torch, as it is XLA in the reference.
+On the card the dense layers are bf16 GEMMs with fp32 accumulation.
+
+Parameters are random-init (``init_params``), converted from the JAX
+package's tree (``models/convert.py``) or loaded from a HuggingFace
+checkpoint (``load_hf_siglip``). ``prepare_params`` replaces the image
+tower's leaves with the kernel layouts once at load time.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import fat_vit_mha_packed, fat_width
+from ..ops.attention import fat_vit_mha_packed, fat_width, mha
 from ..ops.fused import ln_matmul, ln_mlp_residual, matmul_residual, pad_hidden
+from .safetensors_io import read_safetensors
 
 Params = Dict[str, Any]
 
@@ -41,6 +52,8 @@ __all__ = [
     "prepare_params",
     "preprocess_image",
     "encode_image",
+    "encode_text",
+    "load_hf_siglip",
     "param_count",
 ]
 
@@ -61,8 +74,8 @@ class SigLIPConfig:
     text_len: int = 64
     d_emb: int = 1152
     param_dtype: Any = torch.bfloat16
-    # kept for config parity with the JAX package; the port's image tower
-    # always runs the fat-layout path
+    # image-tower route: "xla" runs the plain encoder and MAP head; any
+    # other value ("auto", "fat_interpret") the fat-layout kernels
     attn_impl: str = "auto"
 
     @property
@@ -217,6 +230,10 @@ def _is_prepared(img: Params) -> bool:
     return "qkv" in img["blocks"]
 
 
+def _uses_fat_path(cfg: SigLIPConfig) -> bool:
+    return cfg.attn_impl != "xla"
+
+
 def prepare_params(params: Params, cfg: SigLIPConfig) -> Params:
     """Replace the image tower's leaves with the kernels' layouts.
 
@@ -226,10 +243,11 @@ def prepare_params(params: Params, cfg: SigLIPConfig) -> Params:
     hidden width zero-padded to the kernels' tile. The MAP head's k and v
     become one packed projection (``map_head["kv"]``). The tree keeps only
     what ``encode_image`` reads, so no weight is held twice. Returns a new
-    top-level dict; the other towers are passed through.
+    top-level dict; the text tower and the scalars are passed through, and
+    with ``attn_impl="xla"`` (the plain image route) the whole tree is.
     """
-    img = params["img"]
-    if _is_prepared(img):
+    img = params.get("img")
+    if img is None or _is_prepared(img) or not _uses_fat_path(cfg):
         return params
     blocks, mh = img["blocks"], img["map_head"]
     (wq, bq), (wk, bk), (wv, bv) = _fat_qkv_weights(
@@ -283,7 +301,17 @@ def _layer_norm(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """fp32 accumulation, bias in fp32, one rounding (XLA's cast points)."""
+    """x @ w + b with XLA's cast points: fp32 accumulation, the bias added
+    in fp32, one rounding to x's dtype.
+
+    On the card one ``torch.addmm`` in x's dtype does that (a bf16 GEMM
+    accumulates in fp32 and adds the bias before its one rounding). On the
+    CPU the operands are upcast to fp32 and the sum rounded once.
+    """
+    if x.device.type == "cuda":
+        lead = x.shape[:-1]
+        y = torch.addmm(p["b"], x.reshape(-1, x.shape[-1]), p["w"])
+        return y.reshape(*lead, y.shape[-1])
     return (x.float() @ p["w"].float() + p["b"].float()).to(x.dtype)
 
 
@@ -291,6 +319,47 @@ def _mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
     h = _dense(x, p["fc1"])
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     return _dense(h, p["fc2"])
+
+
+def _attn(x: torch.Tensor, p: Params, num_heads: int, kv: torch.Tensor | None = None):
+    """Multi-head attention block; ``kv`` for cross-attention (MAP head)."""
+    b, s, d = x.shape
+    src = x if kv is None else kv
+    sk = src.shape[1]
+    dh = d // num_heads
+    q = _dense(x, p["q"]).reshape(b, s, num_heads, dh)
+    k = _dense(src, p["k"]).reshape(b, sk, num_heads, dh)
+    v = _dense(src, p["v"]).reshape(b, sk, num_heads, dh)
+    o = mha(q, k, v).reshape(b, s, d)
+    return _dense(o, p["o"])
+
+
+def _encoder(x: torch.Tensor, blocks: Params, num_heads: int) -> torch.Tensor:
+    """Pre-LN transformer encoder over stacked block params; bf16
+    residual adds, as the reference's scan step."""
+    for i in range(blocks["ln1"]["g"].shape[0]):
+        blk = _layer(blocks, i)
+        x = x + _attn(_layer_norm(x, blk["ln1"]), blk["attn"], num_heads)
+        x = x + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"])
+    return x
+
+
+def _layer(tree, i: int):
+    """Layer i of a tree of stacked per-layer tensors."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _map_head(x: torch.Tensor, p: Params, num_heads: int) -> torch.Tensor:
+    """MAP (multihead attention pooling) head over every row of x: the
+    probe attends through ``_attn``, whose single query takes the plain
+    attention route."""
+    b, _, d = x.shape
+    probe = p["probe"][None].expand(b, 1, d).to(x.dtype)
+    y = _attn(probe, p, num_heads, kv=x)
+    y = y + _mlp(_layer_norm(y, p["ln"]), p["mlp"])
+    return y[:, 0]
 
 
 def _encoder_fat(
@@ -399,11 +468,17 @@ def encode_image(
 
     ``images``: uint8 (B,H,W,3), or float (B,R,R,3) in [-1,1] when
     ``preprocessed``. ``params`` must have been through
-    :func:`prepare_params`.
+    :func:`prepare_params` with the same ``cfg``.
     """
     p = params["img"]
-    if not _is_prepared(p):
+    fat = _uses_fat_path(cfg)
+    if fat and not _is_prepared(p):
         raise ValueError("encode_image needs prepare_params(params, cfg) first")
+    if not fat and _is_prepared(p):
+        raise ValueError(
+            'attn_impl="xla" reads the source tree; these params were prepared '
+            "for the fat-layout path"
+        )
     x = images.to(cfg.param_dtype) if preprocessed else preprocess_image(images, cfg)
     b = x.shape[0]
     n_side = cfg.image_size // cfg.patch_size
@@ -415,13 +490,168 @@ def encode_image(
     x = _dense(x, p["patch_embed"])
     x = x + p["pos_emb"][None].to(x.dtype)
     s = cfg.num_patches
-    sp = ((s + 15) // 16) * 16  # row padding, as the reference (729 -> 736)
-    x = F.pad(x, (0, 0, 0, sp - s)).contiguous()
-    x = _encoder_fat(x, p["blocks"], cfg.num_heads, n_valid=s)
-    emb = _map_head_fat(x, p["ln_final"], p["map_head"], cfg.num_heads, n_valid=s).float()
+    if fat:
+        sp = ((s + 15) // 16) * 16  # row padding, as the reference (729 -> 736)
+        x = F.pad(x, (0, 0, 0, sp - s)).contiguous()
+        x = _encoder_fat(x, p["blocks"], cfg.num_heads, n_valid=s)
+        emb = _map_head_fat(x, p["ln_final"], p["map_head"], cfg.num_heads, n_valid=s)
+    else:
+        x = _encoder(x, p["blocks"], cfg.num_heads)
+        x = _layer_norm(x, p["ln_final"])
+        emb = _map_head(x, p["map_head"], cfg.num_heads)
+    emb = emb.float()
     if normalize:
         emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
     return emb
+
+
+def _embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, tokens, axis=0)``: ids in [-V, -1] wrap, any
+    other out-of-range id gives a NaN row. The gather itself only sees
+    clamped ids, so a bad id never becomes a device-side assert."""
+    vocab = table.shape[0]
+    ids = tokens.long()
+    ids = torch.where(ids < 0, ids + vocab, ids)
+    valid = (ids >= 0) & (ids < vocab)
+    rows = table[ids.clamp(0, vocab - 1)]
+    return rows.masked_fill(~valid[..., None], float("nan"))
+
+
+@torch.inference_mode()
+def encode_text(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: SigLIPConfig = SO400M_14_384,
+    *,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """Token ids (B, text_len) -> fp32 embeddings (B, d_emb), L2-normalised
+    by default.
+
+    big_vision text_transformer semantics, as the reference: token and
+    position embeddings, the pre-LN encoder, final LN, last-token pool
+    (the sticky-EOS tokenisation puts the sentence at position -1), then
+    the output head. The text tower's leaves are used as they are.
+    """
+    p = params["txt"]
+    x = _embed_tokens(p["token_emb"], tokens)
+    x = x + p["pos_emb"][None].to(x.dtype)
+    x = _encoder(x, p["blocks"], cfg.text_num_heads)
+    x = _layer_norm(x, p["ln_final"])
+    emb = _dense(x[:, -1], p["head"]).float()
+    if normalize:
+        emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
+    return emb
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint loading (HF / big_vision name mapping)
+# ---------------------------------------------------------------------------
+
+
+def _hf_block(tensors: Dict[str, torch.Tensor], prefix: str, i: int, dt) -> Params:
+    """Map one HF SiglipEncoderLayer onto the block layout."""
+
+    def t(name):
+        return tensors[f"{prefix}.layers.{i}.{name}"].to(dt)
+
+    def lin(name):
+        return {"w": t(f"{name}.weight").t(), "b": t(f"{name}.bias")}
+
+    return {
+        "ln1": {"g": t("layer_norm1.weight"), "b": t("layer_norm1.bias")},
+        "attn": {
+            "q": lin("self_attn.q_proj"),
+            "k": lin("self_attn.k_proj"),
+            "v": lin("self_attn.v_proj"),
+            "o": lin("self_attn.out_proj"),
+        },
+        "ln2": {"g": t("layer_norm2.weight"), "b": t("layer_norm2.bias")},
+        "mlp": {"fc1": lin("mlp.fc1"), "fc2": lin("mlp.fc2")},
+    }
+
+
+def _stack(trees) -> Params:
+    """Per-layer trees -> one tree of (depth, ...) contiguous tensors."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def load_hf_siglip(path: str, cfg: SigLIPConfig = SO400M_14_384) -> Params:
+    """Load google/siglip-so400m-patch14-384 safetensors into the tree.
+
+    Accepts a file or a directory holding ``model.safetensors``. The same
+    name mapping as the JAX package's loader; every leaf is a contiguous
+    CPU tensor in ``cfg.param_dtype``, except the fp32 scalars ``t`` and
+    ``b`` (``logit_scale`` and ``logit_bias`` where the file has them).
+    """
+    if os.path.isdir(path):
+        path = os.path.join(path, "model.safetensors")
+    tensors = read_safetensors(path)
+    dt = cfg.param_dtype
+    vp, tp = "vision_model.encoder", "text_model.encoder"
+
+    def arr(name):
+        return tensors[name].to(dt).contiguous()
+
+    def proj(w, b):  # a torch Linear's (out, in) weight -> (in, out)
+        return {"w": w.t().to(dt).contiguous(), "b": b.to(dt).contiguous()}
+
+    def lin(name):
+        return proj(tensors[name + ".weight"], tensors[name + ".bias"])
+
+    img_blocks = _stack([_hf_block(tensors, vp, i, dt) for i in range(cfg.depth)])
+    txt_blocks = _stack([_hf_block(tensors, tp, i, dt) for i in range(cfg.text_depth)])
+
+    # HF patch conv weight: (width, 3, P, P) -> (P*P*3, width), matching
+    # the (h, w, c) patch flattening order
+    wconv = tensors["vision_model.embeddings.patch_embedding.weight"]
+    wmat = wconv.permute(2, 3, 1, 0).reshape(-1, cfg.width)
+
+    # HF MAP head: probe, in_proj (packed qkv), out_proj, layernorm, mlp
+    hp = "vision_model.head"
+    w_q, w_k, w_v = tensors[f"{hp}.attention.in_proj_weight"].chunk(3, dim=0)
+    b_q, b_k, b_v = tensors[f"{hp}.attention.in_proj_bias"].chunk(3, dim=0)
+    params = {
+        "img": {
+            "patch_embed": {
+                "w": wmat.to(dt).contiguous(),
+                "b": arr("vision_model.embeddings.patch_embedding.bias"),
+            },
+            "pos_emb": arr("vision_model.embeddings.position_embedding.weight"),
+            "blocks": img_blocks,
+            "ln_final": {
+                "g": arr("vision_model.post_layernorm.weight"),
+                "b": arr("vision_model.post_layernorm.bias"),
+            },
+            "map_head": {
+                "probe": arr(f"{hp}.probe")[0],
+                "q": proj(w_q, b_q),
+                "k": proj(w_k, b_k),
+                "v": proj(w_v, b_v),
+                "o": lin(f"{hp}.attention.out_proj"),
+                "ln": {"g": arr(f"{hp}.layernorm.weight"), "b": arr(f"{hp}.layernorm.bias")},
+                "mlp": {"fc1": lin(f"{hp}.mlp.fc1"), "fc2": lin(f"{hp}.mlp.fc2")},
+            },
+        },
+        "txt": {
+            "token_emb": arr("text_model.embeddings.token_embedding.weight"),
+            "pos_emb": arr("text_model.embeddings.position_embedding.weight"),
+            "blocks": txt_blocks,
+            "ln_final": {
+                "g": arr("text_model.final_layer_norm.weight"),
+                "b": arr("text_model.final_layer_norm.bias"),
+            },
+            "head": lin("text_model.head"),
+        },
+        "t": torch.tensor(float(np.log(10.0)), dtype=torch.float32),
+        "b": torch.tensor(-10.0, dtype=torch.float32),
+    }
+    for key, name in (("t", "logit_scale"), ("b", "logit_bias")):
+        if name in tensors:
+            params[key] = tensors[name].to(torch.float32).reshape(())
+    return params
 
 
 def _leaves(tree):

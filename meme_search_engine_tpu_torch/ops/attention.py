@@ -1,7 +1,17 @@
-"""Fat-layout ViT attention for the SigLIP image tower.
+"""Multi-head attention for the SigLIP towers.
 
-Counterpart of the fat-layout part of
-``meme_search_engine_tpu/ops/attention.py``. q/k/v arrive in the "fat"
+Counterpart of ``meme_search_engine_tpu/ops/attention.py``, in two parts.
+
+**Plain-layout attention** on (B, S, H, Dh) q/k/v, as the text tower and
+the image tower's ``attn_impl="xla"`` route call it through :func:`mha`.
+The dispatch is the JAX package's: non-causal self-attention with
+``1 < Sq == Sk <= 2048`` goes to the fused kernel (``fused_mha_pallas``
+on the TPU, ``csrc/mha.cu`` here, :func:`fused_mha`); anything else
+(the MAP head's single probe query, causal attention) goes to
+:func:`mha_xla`, the reference's own route for those shapes. The fused
+kernel's plain version (:func:`fused_mha_plain`) runs for CPU tensors.
+
+**Fat-layout attention** for the image tower. q/k/v arrive in the "fat"
 head-major layout (B, SP, H*C), C = ``fat_width(head_dim)``: per head the
 head_dim features, then one constant column, then zero padding.
 
@@ -20,11 +30,16 @@ CPU tensors.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .fused import _check, _on_cpu
 
 __all__ = [
+    "mha",
+    "mha_xla",
+    "fused_mha",
+    "fused_mha_plain",
     "fat_width",
     "fat_vit_mha",
     "fat_vit_mha_packed",
@@ -34,16 +49,147 @@ __all__ = [
     "reset_launches",
 ]
 
-# Launches of the fat attention kernel, through either wrapper.
-launches = {"fat_vit_mha": 0}
+# Kernel launches: "fused_mha" counts one per call of the fused kernel's
+# wrapper; "fat_vit_mha" counts the fat kernel through either wrapper.
+launches = {"fused_mha": 0, "fat_vit_mha": 0}
 
-# The kernel is compiled for these fat widths padded to 16: 80 for SO400M
-# (head_dim 72) and 16 for the tiny test geometry (head_dim 7).
-KERNEL_FAT_WIDTHS = (16, 80)
+# The fat kernel is compiled for these fat widths padded to 16: 80 for
+# SO400M (head_dim 72), 32 for the tiny test config (head_dim 16) and 16
+# for the tiny fat test config (head_dim 7).
+KERNEL_FAT_WIDTHS = (16, 32, 80)
+
+# The fused kernel is compiled for these head widths padded to 16: 80 for
+# SO400M (72) and 16 for the tiny test configs (16, and 7 padded to 8).
+# The longest sequence mha() sends it is the JAX dispatch's.
+KERNEL_MHA_WIDTHS = (16, 80)
+MHA_MAX_SEQ = 2048
+_STABLE_MODES = {"row": 0, "scalar": 1, "none": 2}
 
 
 def reset_launches() -> None:
-    launches["fat_vit_mha"] = 0
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain-layout attention (B, S, H, Dh)
+# ---------------------------------------------------------------------------
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
+    """Scaled dot-product attention with the JAX package's dispatch.
+
+    q, k, v: (B, S, H, Dh). Returns (B, Sq, H, Dh) in q.dtype. Non-causal
+    self-attention with ``1 < Sq == Sk <= 2048`` runs the fused kernel
+    (its plain version for CPU tensors); everything else runs
+    :func:`mha_xla`.
+    """
+    sq, sk = q.shape[1], k.shape[1]
+    if not causal and sq == sk and 1 < sq <= MHA_MAX_SEQ:
+        return fused_mha(q, k, v)
+    return mha_xla(q, k, v, causal=causal)
+
+
+def mha_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
+    """The reference's XLA attention: fp32 scores and softmax, probs cast
+    to v's dtype before P.V with fp32 accumulation."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / dh**0.5)
+    if causal:
+        sq, sk = scores.shape[-2], scores.shape[-1]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def fused_mha_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stable: str = "scalar"
+) -> torch.Tensor:
+    """``_fused_attention_kernel``'s function, per (batch, head): fp32
+    scores times 1/sqrt(Dh); p = exp(s - M) with M one max over the head's
+    whole S x S block ("scalar"), the row max ("row") or 0 ("none"); l
+    summed from fp32 p; P cast to v's dtype before P.V; out = o * (1/l)."""
+    if stable not in _STABLE_MODES:
+        raise ValueError(f"stable must be one of {tuple(_STABLE_MODES)}, got {stable!r}")
+    dh = q.shape[-1]
+    qh, kh, vh = (t.permute(0, 2, 1, 3).float() for t in (q, k, v))  # (B, H, S, Dh)
+    s = (qh @ kh.transpose(-1, -2)) * (1.0 / dh**0.5)
+    if stable == "row":
+        s = s - s.amax(dim=-1, keepdim=True)
+    elif stable == "scalar":
+        s = s - s.amax(dim=(-2, -1), keepdim=True)
+    p = torch.exp(s)
+    l = p.sum(dim=-1, keepdim=True)
+    o = p.to(v.dtype).float() @ vh
+    out = o * (1.0 / l)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _check_mha_operand(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: kernel takes bfloat16, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
+        raise ValueError(
+            f"{name}: kernel takes views with unit stride on Dh and strides that are "
+            f"multiples of 8 elements elsewhere, got strides {t.stride()}"
+        )
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: kernel takes 16-byte aligned tensors")
+
+
+def fused_mha(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, stable: str = "scalar"
+) -> torch.Tensor:
+    """Fused non-causal self-attention (B, S, H, Dh) -> (B, S, H, Dh).
+
+    CPU tensors take :func:`fused_mha_plain`. CUDA tensors launch
+    ``csrc/mha.cu``, reading q/k/v in place through their strides; Dh is
+    zero-padded to a multiple of 8 first, as the JAX wrapper pads it.
+    """
+    if stable not in _STABLE_MODES:
+        raise ValueError(f"stable must be one of {tuple(_STABLE_MODES)}, got {stable!r}")
+    if _on_cpu(q, k, v):
+        return fused_mha_plain(q, k, v, stable)
+    if q.dim() != 4:
+        raise ValueError(f"q: expected (B, S, H, Dh), got {tuple(q.shape)}")
+    b, s, h, d = q.shape
+    dp = -(-d // 8) * 8
+    if -(-dp // 16) * 16 not in KERNEL_MHA_WIDTHS:
+        raise ValueError(
+            f"head width {d} is not one the kernel is compiled for: "
+            f"{KERNEL_MHA_WIDTHS} after padding to 16"
+        )
+    if dp != d:
+        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_mha_operand(name, t, (b, s, h, dp))
+    out = torch.empty((b, s, h, dp), dtype=torch.bfloat16, device=q.device)
+    mode = _STABLE_MODES[stable]
+    # with more than one 64-row query block per head, the scalar mode's
+    # max over the head comes from a pre-pass through this scratch
+    gmax = None
+    if stable == "scalar" and s > 64:
+        gmax = torch.full((b * h,), float("-inf"), dtype=torch.float32, device=q.device)
+    scale = 1.0 / d**0.5
+    err = _build.library("mha").mse_mha(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if gmax is None else gmax.data_ptr(),
+        b, s, h, dp, mode, scale,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        _build.stream_ptr(q.device),
+    )
+    _build.check(err, "fused_mha")
+    launches["fused_mha"] += 1
+    return out if dp == d else out[..., :d]
+
+
+# ---------------------------------------------------------------------------
+# Fat-layout attention (B, SP, H*C)
+# ---------------------------------------------------------------------------
 
 
 def fat_width(head_dim: int) -> int:

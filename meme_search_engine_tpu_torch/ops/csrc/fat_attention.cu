@@ -261,7 +261,8 @@ extern "C" {
 
 // out(B, SP, H*D) from fat-layout q/k/v views with the given element strides.
 // Needs C % 8 == 0, D < C, 16-byte aligned rows, and C padded to 16 equal to
-// 80 (SO400M, d=72) or 16 (the tiny test geometry, d=7).
+// 80 (SO400M, d=72), 32 (the tiny test config, d=16) or 16 (the tiny fat
+// test config, d=7).
 int mse_fat_attention(const void* q, const void* k, const void* v, void* out,
                       int B, int SP, int H, int C, int D, long long q_row,
                       long long k_row, long long v_row, long long q_batch,
@@ -270,6 +271,9 @@ int mse_fat_attention(const void* q, const void* k, const void* v, void* out,
   switch ((C + 15) / 16 * 16) {
     case 80:
       return launch<80>(q, k, v, out, B, SP, H, C, D, q_row, k_row, v_row, q_batch,
+                        k_batch, v_batch, s);
+    case 32:
+      return launch<32>(q, k, v, out, B, SP, H, C, D, q_row, k_row, v_row, q_batch,
                         k_batch, v_batch, s);
     case 16:
       return launch<16>(q, k, v, out, B, SP, H, C, D, q_row, k_row, v_row, q_batch,

@@ -7,15 +7,17 @@ Counterpart of ``meme_search_engine_tpu/serving/clip_server.py``, same API:
   GET  /        204 (health)
   GET  /metrics Prometheus text
 
-Pipeline: asyncio handlers -> host decode pool (PIL) -> one inference
-worker thread that owns the device -> response. Text requests answer 500
-until the text tower is ported (the engine raises NotImplementedError).
+Pipeline: asyncio handlers -> host decode pool (PIL) for images -> one
+inference worker thread that owns the device -> response. Texts are
+tokenised and embedded by the engine on that worker thread.
 
 Run: ``python -m meme_search_engine_tpu_torch.serving.clip_server config.json``
 Config keys: port, device ("cuda" by default, or "cpu"), max_batch_size,
-model_name ("tiny..." serves the tiny test geometry), decode_threads,
-warmup. Weights are random-init from seed 0, as in the reference; a
-"checkpoint" is not supported yet.
+model_name ("tiny..." serves the tiny test geometry), checkpoint
+(optional HF ``model.safetensors`` or its directory), tokenizer
+(optional HF ``tokenizer.json``; without it the hash tokenizer),
+decode_threads, warmup. Without a checkpoint the weights are random-init
+from seed 0, as in the reference.
 
 ``msgpack``, ``aiohttp``, ``PIL`` and ``prometheus_client`` are imported
 where they are used, so the engine and :class:`InferenceWorker` import
@@ -218,28 +220,28 @@ def make_app(engine, config: dict):
 
 
 def build_engine(config: dict):
-    """Engine from a service config: random-init weights from seed 0."""
+    """Engine from a service config: the checkpoint's weights, or
+    random-init weights from seed 0."""
     import torch
 
     from ..models import siglip
     from .engine import EmbeddingEngine, resolve_device
 
-    if config.get("checkpoint"):
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet (load_hf_siglip comes with "
-            "the next slice, ROADMAP.md queue 1 item 4); omit 'checkpoint' "
-            "to serve random-init weights"
-        )
     device = resolve_device(config.get("device", "cuda"))
     if config.get("model_name", "").startswith("tiny"):
         cfg = siglip.tiny_test_config()
     else:
         cfg = siglip.SO400M_14_384
-    print("WARNING: no checkpoint configured; serving random-init weights", file=sys.stderr)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = siglip.init_params(cfg, gen, device)
+    ckpt = config.get("checkpoint")
+    if ckpt:
+        params = siglip.load_hf_siglip(ckpt, cfg)
+    else:
+        print("WARNING: no checkpoint configured; serving random-init weights", file=sys.stderr)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = siglip.init_params(cfg, gen, device)
     return EmbeddingEngine(
-        params, cfg, max_batch=int(config.get("max_batch_size", 128)), device=device
+        params, cfg, max_batch=int(config.get("max_batch_size", 128)), device=device,
+        tokenizer_path=config.get("tokenizer"),
     )
 
 

@@ -3,8 +3,10 @@
 Counterpart of ``meme_search_engine_tpu/serving/engine.py``. Request
 batches are split into descending power-of-two buckets (the same split as
 the JAX engine, so a request maps to the same device batches and the same
-kernel shapes); each bucket runs ``siglip.encode_image`` on the engine's
-device and comes back as L2-normalised fp32 numpy.
+kernel shapes); each bucket runs ``siglip.encode_image`` or
+``siglip.encode_text`` on the engine's device and comes back as
+L2-normalised fp32 numpy. Texts are tokenised on the host first
+(``serving/tokenizer.py``).
 
 The engine runs on ``cuda`` unless the caller asks for ``cpu``; asking for
 CUDA on a host without it raises, it never falls back to the CPU.
@@ -12,19 +14,15 @@ CUDA on a host without it raises, it never falls back to the CPU.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models import siglip
+from .tokenizer import load_tokenizer
 
 __all__ = ["EmbeddingEngine", "pow2_buckets", "resolve_device"]
-
-_TEXT_NOT_PORTED = (
-    "text embedding is not ported yet: encode_text and its attention kernel "
-    "come with the next slice (ROADMAP.md, queue 1 item 4)"
-)
 
 
 def pow2_buckets(n: int, max_batch: int) -> List[int]:
@@ -58,15 +56,18 @@ def _to(tree, device):
 
 
 class EmbeddingEngine:
-    """Batched SigLIP image inference with power-of-two bucketing.
+    """Batched SigLIP inference, both towers, with power-of-two bucketing.
 
     Args:
-      params: the port's SigLIP tree (``siglip.init_params`` or
-        ``convert.params_from_numpy``); its image tower is moved to
-        ``device`` and put into the kernel layouts here, once.
+      params: the port's SigLIP tree (``siglip.init_params``,
+        ``siglip.load_hf_siglip`` or ``convert.params_from_numpy``); both
+        towers are moved to ``device`` here and the image tower is put
+        into the kernel layouts, once.
       cfg: model config.
       max_batch: largest single device batch.
       device: "cuda" (default) or "cpu".
+      tokenizer_path: optional HF ``tokenizer.json`` (or its directory);
+        without one, the hash tokenizer (``serving/tokenizer.py``).
     """
 
     def __init__(
@@ -75,31 +76,36 @@ class EmbeddingEngine:
         cfg: siglip.SigLIPConfig = siglip.SO400M_14_384,
         max_batch: int = 128,
         device: str | torch.device = "cuda",
+        tokenizer_path: Optional[str] = None,
     ):
         self.cfg = cfg
         self.max_batch = max_batch
         self.device = resolve_device(device)
-        img = _to(params["img"], self.device)
-        self.params = siglip.prepare_params({"img": img}, cfg)
+        if self.device.type == "cuda":
+            # the dense layers' bf16 GEMMs accumulate in fp32, split-K
+            # partial sums included, as the reference's do (process-wide)
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        towers = {k: _to(params[k], self.device) for k in ("img", "txt")}
+        self.params = siglip.prepare_params(towers, cfg)
+        self.tokenizer = load_tokenizer(tokenizer_path, cfg.vocab_size, cfg.text_len)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
-        """Run every bucket once (builds the kernels on first use)."""
+        """Run every bucket of both towers once (builds the kernels on
+        first use)."""
         r = self.cfg.image_size
         if buckets is None:
             buckets = [1 << i for i in range(self.max_batch.bit_length())]
         for b in buckets:
             self.embed_image_arrays(np.zeros((b, r, r, 3), np.uint8))
+            self.embed_tokens(np.ones((b, self.cfg.text_len), np.int32))
 
-    def _run_bucketed(self, batch: np.ndarray, pre: bool) -> np.ndarray:
+    def _run_bucketed(self, fn: Callable[[torch.Tensor], torch.Tensor], batch: np.ndarray) -> np.ndarray:
         n = batch.shape[0]
         out = np.empty((n, self.cfg.d_emb), dtype=np.float32)
         i = 0
         for b in pow2_buckets(n, self.max_batch):
             chunk = torch.from_numpy(np.ascontiguousarray(batch[i : i + b]))
-            emb = siglip.encode_image(
-                self.params, chunk.to(self.device), self.cfg, preprocessed=pre
-            )
-            out[i : i + b] = emb.cpu().numpy()
+            out[i : i + b] = fn(chunk.to(self.device)).cpu().numpy()
             i += b
         return out
 
@@ -109,10 +115,17 @@ class EmbeddingEngine:
         If H,W differ from the model resolution the resize runs on the
         device; float input in [-1,1] at the model resolution skips it.
         """
-        return self._run_bucketed(images, images.dtype != np.uint8)
+        pre = images.dtype != np.uint8
+        return self._run_bucketed(
+            lambda x: siglip.encode_image(self.params, x, self.cfg, preprocessed=pre), images
+        )
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
-        raise NotImplementedError(_TEXT_NOT_PORTED)
+        """Strings -> (N, d_emb) fp32 unit-norm embeddings."""
+        return self.embed_tokens(self.tokenizer(list(texts)))
 
     def embed_tokens(self, tokens: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(_TEXT_NOT_PORTED)
+        """Token ids (N, text_len) -> (N, d_emb) fp32 unit-norm embeddings."""
+        return self._run_bucketed(
+            lambda x: siglip.encode_text(self.params, x, self.cfg), tokens.astype(np.int32)
+        )

@@ -1,8 +1,13 @@
 """Port parity: meme_search_engine_tpu_torch.ops.attention against the
-JAX package's fat-layout Pallas kernel (interpret mode) on the same numpy
-inputs, at the tiny test geometry and at SO400M's head geometry.
+JAX package's attention on the same numpy inputs.
 
-Valid rows only, atol 2e-2, as in tests/test_attention.py.
+- Plain-layout attention (B, S, H, Dh): the fused kernel's plain version
+  against ``fused_mha_pallas`` in interpret mode and against ``mha_xla``
+  (rtol = atol = 2e-3, as tests/test_attention.py:31), and the ``mha``
+  dispatch.
+- Fat-layout attention: the JAX fat Pallas kernel (interpret mode) at
+  the tiny test geometry and at SO400M's head geometry; valid rows only,
+  atol 2e-2, as in tests/test_attention.py.
 """
 
 import jax.numpy as jnp
@@ -76,10 +81,94 @@ def test_fat_vit_mha_matches_masked_softmax():
 
 
 def test_fat_width_and_cpu_path_counts_nothing():
-    assert ta.fat_width(72) == 80 and ta.fat_width(7) == 8
+    assert ta.fat_width(72) == 80 and ta.fat_width(7) == 8 and ta.fat_width(16) == 24
     ta.reset_launches()
     f = _packed(np.random.default_rng(3), 1, 16, 11, 16, 7)
     ta.fat_vit_mha_packed(tensor_from_numpy(f), 16, 7)
-    assert ta.launches == {"fat_vit_mha": 0}
+    q = torch.zeros((1, 8, 2, 16))
+    ta.fused_mha(q, q, q)
+    ta.mha(q, q, q)
+    assert ta.launches == {"fused_mha": 0, "fat_vit_mha": 0}
     with pytest.raises(ValueError):
         ta.fat_vit_mha_packed(torch.empty((1, 16, 384), dtype=torch.bfloat16, device="meta"), 16, 7)
+
+
+# ---------------------------------------------------------------------------
+# Plain-layout attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def qkv():
+    """tests/test_attention.py's inputs: (B, S, H, Dh) = (2, 24, 4, 16) fp32."""
+    rng = np.random.default_rng(0)
+    return tuple(rng.standard_normal((2, 24, 4, 16)).astype(np.float32) for _ in range(3))
+
+
+@pytest.mark.parametrize("stable", ["row", "scalar", "none"])
+def test_fused_mha_plain_matches_jax_pallas(qkv, stable):
+    jq = tuple(map(jnp.asarray, qkv))
+    want = np.asarray(ja.fused_mha_pallas(*jq, stable=stable, interpret=True))
+    ref = np.asarray(ja.mha_xla(*jq))
+    got = ta.fused_mha_plain(*map(torch.from_numpy, qkv), stable=stable)
+    assert got.dtype == torch.float32 and got.shape == (2, 24, 4, 16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-3, atol=2e-3)
+    # the wrapper takes the plain version for CPU tensors
+    assert torch.equal(ta.fused_mha(*map(torch.from_numpy, qkv), stable=stable), got)
+
+
+def test_fused_mha_plain_matches_jax_pallas_bf16():
+    """bf16 operands: P is rounded to bf16 before P.V and the output is
+    bf16, at the reference's cast points (one bf16 ulp at |o| < 4)."""
+    rng = np.random.default_rng(4)
+    x = [rng.standard_normal((2, 64, 4, 72)).astype(ml_dtypes.bfloat16) for _ in range(3)]
+    want = np.asarray(ja.fused_mha_pallas(*map(jnp.asarray, x), interpret=True), np.float32)
+    got = ta.fused_mha_plain(*map(tensor_from_numpy, x))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2)
+
+
+def test_mha_dispatch_cpu(qkv):
+    """On CPU tensors mha takes the fused kernel's plain version; it agrees
+    with the JAX mha (XLA on the CPU) to rtol 1e-5, and to atol 1e-6 where
+    the output is near 0 (the deferred division and the scalar shift
+    round differently from a softmax)."""
+    tq = tuple(map(torch.from_numpy, qkv))
+    out = ta.mha(*tq)
+    assert torch.equal(out, ta.fused_mha_plain(*tq))
+    want = np.asarray(ja.mha(*map(jnp.asarray, qkv)))
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ta.mha_xla(*tq).numpy(), np.asarray(ja.mha_xla(*map(jnp.asarray, qkv))), rtol=1e-5, atol=1e-6)
+
+
+def test_causal_mask():
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((1, 6, 2, 8)).astype(np.float32)
+    out = ta.mha(*(torch.from_numpy(q),) * 3, causal=True).numpy()
+    # position 0 attends only to itself: output == v[0]
+    np.testing.assert_allclose(out[0, 0], q[0, 0], rtol=1e-5)
+    want = np.asarray(ja.mha(*(jnp.asarray(q),) * 3, causal=True))
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-6)
+    # cross-attention with fewer queries than keys: the mask sits at the end
+    got = ta.mha_xla(torch.from_numpy(q[:, 4:]), *(torch.from_numpy(q),) * 2, causal=True).numpy()
+    want = np.asarray(ja.mha_xla(jnp.asarray(q[:, 4:]), *(jnp.asarray(q),) * 2, causal=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_mha_takes_the_xla_route_for_one_query_and_causal(monkeypatch):
+    """Sq = 1 (the MAP head's probe), Sq != Sk and causal attention run
+    mha_xla, as the JAX dispatch does; the fused path is never called."""
+    monkeypatch.setattr(ta, "fused_mha", lambda *a, **k: pytest.fail("fused path taken"))
+    rng = np.random.default_rng(2)
+    kv = torch.from_numpy(rng.standard_normal((2, 9, 4, 16)).astype(np.float32))
+    for q, causal in ((kv[:, :1], False), (kv[:, :5], False), (kv, True)):
+        assert torch.equal(ta.mha(q, kv, kv, causal=causal), ta.mha_xla(q, kv, kv, causal=causal))
+
+
+def test_fused_mha_refuses_unknown_stable_mode():
+    q = torch.zeros((1, 4, 1, 8))
+    with pytest.raises(ValueError, match="stable"):
+        ta.fused_mha_plain(q, q, q, stable="rows")
+    with pytest.raises(ValueError, match="stable"):
+        ta.fused_mha(q, q, q, stable="global")

@@ -2,8 +2,9 @@
 
 Marked ``cuda``: each test skips on a host without a GPU. These shapes
 are chosen to hit the kernels' edges (rows and columns that do not fill a
-tile, ragged key tiles, narrow heads); chip_smoke.py checks the SO400M
-shapes. This file imports neither JAX nor the JAX package, so on the GPU
+tile, ragged key tiles, narrow heads, strided views); chip_smoke.py
+checks the SO400M shapes. Tolerances: 0.05 for the GEMMs
+(tests/test_fused.py), atol 2e-2 for attention (tests/test_attention.py:98). This file imports neither JAX nor the JAX package, so on the GPU
 machine it runs without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
@@ -76,7 +77,11 @@ def test_ln_mlp_residual_kernel(gen):
     _assert_close(got, fused.ln_mlp_residual_plain(x, g, be, w1, b1, w2, b2), 0.05)
 
 
-@pytest.mark.parametrize("b,sp,n_valid,h,d", [(2, 16, 11, 16, 7), (2, 100, 90, 4, 72), (2, 736, 729, 16, 72)])
+@pytest.mark.parametrize(
+    "b,sp,n_valid,h,d",
+    [(2, 16, 11, 16, 7), (2, 16, 4, 4, 16), (2, 100, 90, 4, 72), (2, 736, 729, 16, 72)],
+    ids=["tiny_fat", "tiny", "ragged", "so400m"],
+)
 def test_fat_attention_kernel(gen, b, sp, n_valid, h, d):
     c = attention.fat_width(d)
     f = torch.randn((b, sp, 3, h, c), generator=gen, device="cuda")
@@ -106,5 +111,128 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fused.ln_matmul(_rn(gen, 1, 8, 60), b[:60].contiguous(), b[:60].contiguous(), w[:60].contiguous(), b)
     with pytest.raises(ValueError):
         fused.matmul_residual(x, w, b, x.cpu())
-    with pytest.raises(ValueError, match="compiled for"):  # head_dim 16: fat width 24
-        attention.fat_vit_mha_packed(_rn(gen, 1, 8, 3 * 4 * 24), 4, 16)
+    with pytest.raises(ValueError, match="compiled for"):  # head_dim 40: fat width 48
+        attention.fat_vit_mha_packed(_rn(gen, 1, 8, 3 * 4 * 48), 4, 40)
+
+
+@pytest.mark.parametrize("s", [64, 24, 729])
+@pytest.mark.parametrize("d", [72, 16])
+@pytest.mark.parametrize("stable", ["row", "scalar", "none"])
+def test_fused_mha_kernel(gen, s, d, stable):
+    b, h = 2, 4
+    q, k, v = (_rn(gen, b, s, h, d) for _ in range(3))
+    attention.reset_launches()
+    got = attention.fused_mha(q, k, v, stable=stable)
+    assert attention.launches["fused_mha"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, d) and got.is_contiguous()
+    _assert_close(got, attention.fused_mha_plain(q, k, v, stable), 2e-2)
+
+
+@pytest.mark.parametrize("stable", ["row", "scalar"])
+def test_fused_mha_kernel_strided_views(gen, stable):
+    """q/k/v as views into one packed (B, S, 3, H, Dh) projection and into
+    a head-major (B, H, S, Dh) array: read in place through strides."""
+    b, s, h, d = 3, 80, 16, 72
+    packed = _rn(gen, b, s, 3, h, d)
+    q, k, v = packed.unbind(2)
+    assert not q.is_contiguous()
+    want = attention.fused_mha_plain(q, k, v, stable)
+    _assert_close(attention.fused_mha(q, k, v, stable=stable), want, 2e-2)
+    heads = _rn(gen, b, h, s, d).transpose(1, 2)  # (B, S, H, Dh) view
+    _assert_close(
+        attention.fused_mha(heads, k, v, stable=stable),
+        attention.fused_mha_plain(heads, k, v, stable), 2e-2,
+    )
+
+
+def test_fused_mha_kernel_pads_odd_head_widths_and_scores_far_apart(gen):
+    """Dh % 8 != 0 is padded to 8 by the wrapper; in scalar mode a head
+    whose rows sit far below its max may underflow to l = 0 and give NaN
+    rows, as in the reference: the kernel reproduces the plain version
+    there, NaN for NaN."""
+    q, k, v = (_rn(gen, 2, 40, 2, 12) for _ in range(3))
+    _assert_close(attention.fused_mha(q, k, v), attention.fused_mha_plain(q, k, v), 2e-2)
+    q = _rn(gen, 1, 64, 1, 16)
+    # rows 0-31 share one query whose scores dwarf the other rows' by far
+    # more than exp's range: those rows keep l >= 1, rows 32-63 get l = 0
+    q[:, :32] = q[:, :1] * 200.0
+    k, v = _rn(gen, 1, 64, 1, 16), _rn(gen, 1, 64, 1, 16)
+    got = attention.fused_mha(q, k, v)
+    want = attention.fused_mha_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert want[:, 32:].isnan().all() and not want[:, :32].isnan().any()
+    assert torch.equal(got.isnan(), want.isnan())
+    ok = ~want.isnan()
+    torch.testing.assert_close(got.float()[ok], want.float()[ok], rtol=2e-2, atol=2e-2)
+
+
+def test_fused_mha_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    q = _rn(gen, 1, 16, 2, 72)
+    with pytest.raises(TypeError):
+        attention.fused_mha(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="shape"):
+        attention.fused_mha(q, q[:, :8], q[:, :8])
+    for d in (40, 136):  # padded widths 48 and 144 are not compiled
+        with pytest.raises(ValueError, match="head width"):
+            x = _rn(gen, 1, 16, 1, d)
+            attention.fused_mha(x, x, x)
+    with pytest.raises(ValueError, match="stride"):
+        x = _rn(gen, 1, 16, 2, 144)[..., ::2]  # unit stride on Dh broken
+        attention.fused_mha(x, x, x)
+    with pytest.raises(ValueError, match="aligned"):
+        x = _rn(gen, 16 * 2 * 72 + 8).narrow(0, 4, 16 * 2 * 72).view(1, 16, 2, 72)
+        attention.fused_mha(x, x, x)
+    with pytest.raises(ValueError):
+        attention.fused_mha(q, q, q.cpu())
+
+
+def test_tiny_engine_serves_both_towers_on_the_card():
+    """The tiny test config (fat width 32, text head width 16) runs on the
+    card and agrees with the CPU plain path on the same weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
+
+    cfg = siglip.tiny_test_config()
+    params = siglip.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu = EmbeddingEngine(params, cfg, max_batch=4, device="cpu")
+    card = EmbeddingEngine(params, cfg, max_batch=4, device="cuda")
+    imgs = np.random.default_rng(0).integers(0, 256, (5, 28, 28, 3), dtype=np.uint8)
+    texts = ["a cat", "two dogs on a beach", "", "memes", "x y z"]
+    attention.reset_launches()
+    for a, b in ((card.embed_image_arrays(imgs), cpu.embed_image_arrays(imgs)),
+                 (card.embed_texts(texts), cpu.embed_texts(texts))):
+        assert np.isfinite(a).all()
+        assert ((a * b).sum(-1)).min() > 0.999
+    assert attention.launches == {"fat_vit_mha": 2 * cfg.depth, "fused_mha": 2 * cfg.text_depth}
+
+
+def test_xla_image_route_on_the_card():
+    """attn_impl="xla": the plain encoder and MAP head, whose
+    self-attention (S=729 at SO400M, 4 here) takes the fused kernel and
+    whose probe attention (one query) takes the plain route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from meme_search_engine_tpu_torch.models import siglip
+
+    cfg = dataclasses.replace(siglip.tiny_test_config(), attn_impl="xla")
+    params = siglip.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    imgs = torch.randint(0, 256, (3, 28, 28, 3), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.uint8)
+    want = siglip.encode_image(params, imgs, cfg)
+    card = siglip.prepare_params(_to_cuda(params), cfg)
+    attention.reset_launches()
+    got = siglip.encode_image(card, imgs.cuda(), cfg).cpu()
+    assert attention.launches == {"fused_mha": cfg.depth, "fat_vit_mha": 0}
+    assert torch.isfinite(got).all() and ((got * want).sum(-1)).min() > 0.999
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    return tree.cuda()

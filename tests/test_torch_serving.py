@@ -42,27 +42,79 @@ def test_pow2_buckets():
     assert pow2_buckets(5, 4) == [4, 1]
 
 
-def test_engine_matches_jax_engine():
-    """A 5-image request (buckets 4 + 1) gives the JAX engine's
-    embeddings, as fp32 unit-norm numpy, with the same weights."""
-    jcfg = dataclasses.replace(js.tiny_fat_test_config("fat_interpret"), d_emb=112)
+TEXTS = ["a cat on a mat", "Two DOGS", "", "memes about tpus and gpus", "x " * 80]
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """The JAX engine and the port's, max_batch 4, on the same weights."""
+    jcfg = dataclasses.replace(js.tiny_fat_test_config("fat_interpret"), d_emb=112, text_width=112)
     params = js.init_params(jax.random.PRNGKey(11), jcfg)
-    imgs = np.random.default_rng(12).integers(0, 256, (5, 28, 28, 3), dtype=np.uint8)
-    want = JaxEngine(params, jcfg, max_batch=4).embed_image_arrays(imgs)
-    tparams = convert.params_from_numpy(
-        jax.tree.map(np.asarray, {"img": params["img"]}), _port_cfg(jcfg), "cpu"
-    )
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, params), _port_cfg(jcfg), "cpu")
     engine = EmbeddingEngine(tparams, _port_cfg(jcfg), max_batch=4, device="cpu")
-    got = engine.embed_image_arrays(imgs)
-    assert got.dtype == np.float32 and got.shape == (5, 112)
+    return JaxEngine(params, jcfg, max_batch=4), engine
+
+
+def _assert_unit_and_close(got, want, d):
+    assert got.dtype == np.float32 and got.shape == (5, d)
     np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
     np.testing.assert_allclose(got, want, atol=5e-2)
     assert ((got * want).sum(-1)).min() > 0.999
+
+
+def test_engine_matches_jax_engine(engines):
+    """A 5-image request (buckets 4 + 1) gives the JAX engine's
+    embeddings, as fp32 unit-norm numpy, with the same weights; so do 5
+    texts, through the same buckets."""
+    jax_engine, engine = engines
+    imgs = np.random.default_rng(12).integers(0, 256, (5, 28, 28, 3), dtype=np.uint8)
+    got = engine.embed_image_arrays(imgs)
+    _assert_unit_and_close(got, jax_engine.embed_image_arrays(imgs), 112)
     # bucketed split equals the parts run alone
     parts = np.concatenate([engine.embed_image_arrays(imgs[:4]), engine.embed_image_arrays(imgs[4:])])
     np.testing.assert_allclose(got, parts, rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.embed_texts(["hello"])
+    got = engine.embed_texts(TEXTS)
+    _assert_unit_and_close(got, jax_engine.embed_texts(TEXTS), 112)
+    parts = np.concatenate([engine.embed_texts(TEXTS[:4]), engine.embed_texts(TEXTS[4:])])
+    np.testing.assert_allclose(got, parts, rtol=1e-5, atol=1e-6)
+
+
+def test_engine_embed_tokens_matches_jax_engine(engines):
+    jax_engine, engine = engines
+    toks = np.random.default_rng(13).integers(0, 128, (5, 16))  # int64: cast to int32
+    got = engine.embed_tokens(toks)
+    _assert_unit_and_close(got, jax_engine.embed_tokens(toks), 112)
+    np.testing.assert_array_equal(engine.embed_texts(TEXTS), engine.embed_tokens(engine.tokenizer(TEXTS)))
+
+
+def test_siglip_tokenizer_copy_gives_the_jax_ids(tmp_path):
+    """The tokenizers-backed class on a tiny word-level tokenizer.json
+    written here: the same ids, sticky EOS and padding as the JAX copy."""
+    tokenizers = pytest.importorskip("tokenizers")
+    from meme_search_engine_tpu.serving import tokenizer as jt
+    from meme_search_engine_tpu_torch.serving import tokenizer as tt
+
+    vocab = {"[UNK]": 0, "</s>": 1, **{w: i + 2 for i, w in enumerate("a cat on mat two dogs memes x".split())}}
+    tok = tokenizers.Tokenizer(tokenizers.models.WordLevel(vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = tokenizers.pre_tokenizers.Whitespace()
+    tok.save(str(tmp_path / "tokenizer.json"))
+    got = tt.load_tokenizer(str(tmp_path), 128, 16)
+    assert isinstance(got, tt.SigLIPTokenizer)
+    want = jt.load_tokenizer(str(tmp_path), 128, 16)(TEXTS)
+    np.testing.assert_array_equal(got(TEXTS), want)
+    assert (want[:, -1] == 1).all() and want[0, 0] == vocab["a"]
+
+
+def test_hash_tokenizer_copy_gives_the_jax_ids():
+    from meme_search_engine_tpu.serving import tokenizer as jt
+    from meme_search_engine_tpu_torch.serving import tokenizer as tt
+
+    for vocab, seq in ((32_000, 64), (128, 16)):
+        np.testing.assert_array_equal(
+            tt.HashTokenizer(vocab, seq)(TEXTS), jt.HashTokenizer(vocab, seq)(TEXTS)
+        )
+    assert isinstance(tt.load_tokenizer(None, 128, 16), tt.HashTokenizer)
+    assert isinstance(tt.load_tokenizer("/nonexistent/tokenizer.json"), tt.HashTokenizer)
 
 
 @pytest.fixture(scope="module")
@@ -103,10 +155,19 @@ def test_clip_server_wire_contract(tiny_engine):
             assert emb.shape == (engine.cfg.d_emb,)
             np.testing.assert_allclose(np.linalg.norm(emb), 1.0, atol=1e-2)
 
-            # text waits for the text tower: the error path answers 500
-            resp = await client.post("/", data=msgpack.packb({"text": ["hello world"]}))
+            # text: 200 with the engine's embeddings as fp16 buffers
+            resp = await client.post("/", data=msgpack.packb({"text": ["hello world", "x"]}))
+            assert resp.status == 200
+            out = msgpack.unpackb(await resp.read(), raw=False)
+            want = engine.embed_texts(["hello world", "x"]).astype(np.float16)
+            assert len(out) == 2
+            for b, w in zip(out, want):
+                np.testing.assert_array_equal(decode_fp16_buffer(b), w.astype(np.float32))
+
+            # oversized text batch -> 500 with error string
+            resp = await client.post("/", data=msgpack.packb({"text": ["x"] * 5}))
             assert resp.status == 500
-            assert "not ported" in msgpack.unpackb(await resp.read(), raw=False)
+            assert "max batch size" in msgpack.unpackb(await resp.read(), raw=False)
 
             # oversized batch -> 500 with error string
             resp = await client.post("/", data=msgpack.packb({"images": [buf.getvalue()] * 5}))
@@ -132,10 +193,14 @@ def test_inference_worker_reports_errors_and_stops(tiny_engine):
     done = queue.Queue()
     worker.submit("image", np.zeros((3, 28, 28, 3), np.uint8), lambda ok, v: done.put((ok, v)))
     worker.submit("text", ["x"], lambda ok, v: done.put((ok, v)))
+    worker.submit("image", np.zeros((1, 28, 28), np.uint8), lambda ok, v: done.put((ok, v)))
     ok, v = done.get(timeout=60)
     assert ok and v.shape == (3, 64)
     ok, v = done.get(timeout=60)
-    assert not ok and "not ported" in v
+    assert ok and v.shape == (1, 64)
+    np.testing.assert_array_equal(v, tiny_engine.embed_texts(["x"]))
+    ok, v = done.get(timeout=60)  # a malformed batch is reported, not raised
+    assert not ok and isinstance(v, str)
     worker.stop(timeout=10)
     assert not worker._thread.is_alive()
 
@@ -143,16 +208,20 @@ def test_inference_worker_reports_errors_and_stops(tiny_engine):
 def test_port_imports_no_jax_and_no_optional_packages():
     """In a fresh process (tests/conftest.py imports jax here), the port's
     modules and chip_smoke.py pull in neither JAX nor the JAX package, and
-    the engine and inference worker need none of msgpack, aiohttp, PIL or
-    prometheus_client."""
+    the engine, the inference worker, the tokenizer and the checkpoint
+    reader need none of msgpack, aiohttp, PIL, prometheus_client,
+    tokenizers, safetensors or triton."""
     code = (
         "import sys\n"
         "import chip_smoke\n"
         "from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine\n"
         "from meme_search_engine_tpu_torch.serving.clip_server import InferenceWorker\n"
         "import meme_search_engine_tpu_torch.models.convert\n"
+        "import meme_search_engine_tpu_torch.models.safetensors_io\n"
         "import meme_search_engine_tpu_torch.ops._build\n"
-        "lazy = [m for m in ('msgpack', 'aiohttp', 'PIL', 'prometheus_client') if m in sys.modules]\n"
+        "import meme_search_engine_tpu_torch.serving.tokenizer\n"
+        "lazy = [m for m in ('msgpack', 'aiohttp', 'PIL', 'prometheus_client', 'tokenizers',\n"
+        "                    'safetensors', 'triton') if m in sys.modules]\n"
         "assert not lazy, lazy\n"
         "import meme_search_engine_tpu_torch.serving.clip_server as cs\n"
         "cs.make_app\n"
@@ -179,8 +248,9 @@ def test_cuda_engine_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="cuda"):
         build_engine({"model_name": "tiny"})
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        build_engine({"checkpoint": "/nonexistent", "device": "cpu"})
+    # the device is resolved before any checkpoint is read
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_engine({"model_name": "tiny", "checkpoint": "/nonexistent"})
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

@@ -1,10 +1,11 @@
 """Port parity: meme_search_engine_tpu_torch.models against the JAX
-package's SigLIP image tower, on the same weights and images.
+package's SigLIP towers, on the same weights, images and token ids.
 
 The JAX side runs as tests/test_siglip.py runs it on the CPU (Pallas in
-interpret mode via attn_impl="fat_interpret", or the XLA path); the port
-runs its plain versions. Tolerances as tests/test_siglip.py:107-109:
-atol 5e-2 and cosine > 0.999.
+interpret mode via attn_impl="fat_interpret", or the XLA path; for the
+text tower also its TPU route, with ``fused_mha_pallas`` in interpret
+mode); the port runs its plain versions. Tolerances as
+tests/test_siglip.py:107-109 and :129-131: atol 5e-2 and cosine > 0.999.
 """
 
 import dataclasses
@@ -70,6 +71,11 @@ def test_bridge_round_trips_every_leaf(tiny):
         assert (got.dtype == torch.bfloat16) == (leaf.dtype.name == "bfloat16"), path
         n += 1
     assert n == len(jax.tree.leaves(params))
+    # the text tower's leaves are among them, and pass prepare_params as they are
+    txt_paths = [p for p, _ in _paths(tree) if p[0] == "txt"]
+    assert len(txt_paths) == len(jax.tree.leaves(params["txt"])) > 0
+    for path in txt_paths:
+        assert torch.equal(_get(tp, path), _get(converted, path)), path
     # params_from_numpy is that conversion followed by prepare_params
     prepared = ts.prepare_params(converted, _port_cfg(cfg))
     assert [p for p, _ in _paths(prepared)] == [p for p, _ in _paths(tp)]
@@ -114,7 +120,10 @@ def test_init_params_has_the_jax_tree_shape():
     assert ts.param_count(tp) == js.param_count(js.init_params(jax.random.PRNGKey(0), jcfg))
 
 
-def _encode_both(jcfg, params, tp, imgs):
+def _encode_both(jcfg, params, imgs):
+    """Both packages' image embeddings; the port's tree is converted for
+    jcfg's route (the kernel layouts, or the source tree for "xla")."""
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, params), _port_cfg(jcfg), "cpu")
     e_j = np.asarray(js.encode_image(params, jnp.asarray(imgs), jcfg))
     e_t = ts.encode_image(tp, torch.from_numpy(imgs), _port_cfg(jcfg)).numpy()
     return e_j, e_t
@@ -129,10 +138,10 @@ def _assert_embeddings_close(e_t, e_j):
 
 @pytest.mark.parametrize("attn_impl", ["fat_interpret", "xla"])
 def test_encode_image_matches_jax_tiny(tiny, attn_impl):
-    cfg, params, _, tp = tiny
+    cfg, params, _, _ = tiny
     jcfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     imgs = np.random.default_rng(3).integers(0, 256, (2, 28, 28, 3), dtype=np.uint8)
-    e_j, e_t = _encode_both(jcfg, params, tp, imgs)
+    e_j, e_t = _encode_both(jcfg, {"img": params["img"]}, imgs)
     _assert_embeddings_close(e_t, e_j)
 
 
@@ -141,9 +150,8 @@ def test_encode_image_matches_jax_at_so400m_width(attn_impl):
     jcfg = _so400m_width(attn_impl)
     params = js.init_params(jax.random.PRNGKey(5), jcfg)
     params = {"img": params["img"]}  # the text tower plays no part
-    tp = convert.params_from_numpy(jax.tree.map(np.asarray, params), _port_cfg(jcfg), "cpu")
     imgs = np.random.default_rng(6).integers(0, 256, (2, 70, 70, 3), dtype=np.uint8)
-    e_j, e_t = _encode_both(jcfg, params, tp, imgs)
+    e_j, e_t = _encode_both(jcfg, params, imgs)
     _assert_embeddings_close(e_t, e_j)
 
 
@@ -166,6 +174,94 @@ def test_encode_image_needs_prepared_params():
     p = ts.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="prepare_params"):
         ts.encode_image(p, torch.zeros((1, 28, 28, 3), dtype=torch.uint8), cfg)
-    e = ts.encode_image(ts.prepare_params(p, cfg), torch.zeros((1, 28, 28, 3), dtype=torch.uint8), cfg)
+    prepared = ts.prepare_params(p, cfg)
+    e = ts.encode_image(prepared, torch.zeros((1, 28, 28, 3), dtype=torch.uint8), cfg)
     # the MAP head pools to the tower width (= d_emb at SO400M)
     assert e.shape == (1, cfg.width) and torch.isfinite(e).all()
+    # the plain route reads the source tree, which prepare_params leaves be
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    assert ts.prepare_params(p, xla) is p
+    with pytest.raises(ValueError, match="fat-layout"):
+        ts.encode_image(prepared, torch.zeros((1, 28, 28, 3), dtype=torch.uint8), xla)
+    # the text tower passes through prepare_params untouched
+    assert prepared["txt"] is p["txt"]
+
+
+# ---------------------------------------------------------------------------
+# Text tower
+# ---------------------------------------------------------------------------
+
+
+def _so400m_text(depth=2):
+    """SO400M's text tower (1152 wide, 16 heads of 72, MLP 4304, S=64) cut
+    to ``depth`` layers with vocab 128, beside a tiny image tower."""
+    return dataclasses.replace(
+        js.tiny_test_config(), text_width=1152, text_depth=depth, text_mlp_dim=4304,
+        text_num_heads=16, text_len=64, vocab_size=128, d_emb=1152,
+    )
+
+
+def _encode_text_both(jcfg, params, toks):
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, params), _port_cfg(jcfg), "cpu")
+    e_j = np.asarray(js.encode_text(params, jnp.asarray(toks), jcfg))
+    e_t = ts.encode_text(tp, torch.from_numpy(toks), _port_cfg(jcfg)).numpy()
+    return e_j, e_t
+
+
+@pytest.mark.parametrize("which", ["tiny", "so400m_text_width"])
+def test_encode_text_matches_jax(which):
+    jcfg = js.tiny_test_config() if which == "tiny" else _so400m_text()
+    params = js.init_params(jax.random.PRNGKey(8), jcfg)
+    params = {"txt": params["txt"]}
+    toks = np.random.default_rng(9).integers(0, jcfg.vocab_size, (3, jcfg.text_len)).astype(np.int32)
+    e_j, e_t = _encode_text_both(jcfg, params, toks)
+    assert e_t.shape == (3, jcfg.d_emb)
+    _assert_embeddings_close(e_t, e_j)
+    np.testing.assert_allclose(np.linalg.norm(e_t, axis=-1), 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["tiny", "so400m_text_width"])
+def test_encode_text_matches_jax_tpu_route(monkeypatch, which):
+    """The JAX text tower as it runs on a TPU: its mha() sends every
+    self-attention layer to fused_mha_pallas, here in interpret mode."""
+    from meme_search_engine_tpu.ops import attention as ja
+
+    calls = []
+
+    def tpu_mha(q, k, v, *, causal=False):
+        assert not causal and q.shape[1] == k.shape[1] > 1
+        calls.append(q.shape)
+        return ja.fused_mha_pallas(q, k, v, interpret=True)
+
+    monkeypatch.setattr(js, "mha", tpu_mha)
+    jax.clear_caches()  # encode_text may have been traced with the XLA route
+    jcfg = js.tiny_test_config() if which == "tiny" else _so400m_text()
+    params = js.init_params(jax.random.PRNGKey(10), jcfg)
+    params = {"txt": params["txt"]}
+    toks = np.random.default_rng(11).integers(0, jcfg.vocab_size, (2, jcfg.text_len)).astype(np.int32)
+    e_j, e_t = _encode_text_both(jcfg, params, toks)
+    jax.clear_caches()
+    assert calls, "the JAX text tower did not reach the patched mha"
+    _assert_embeddings_close(e_t, e_j)
+
+
+def test_token_ids_out_of_range_follow_jnp_take():
+    """ids in [-V, -1] wrap; any other out-of-range id gives a NaN row."""
+    jcfg = js.tiny_test_config()
+    params = js.init_params(jax.random.PRNGKey(12), jcfg)
+    v = jcfg.vocab_size
+    toks = np.array([[0, 5, -1, -v, v, -v - 1, 2**20, 7]], np.int32)
+    table = params["txt"]["token_emb"]
+    want = np.asarray(jnp.take(table, jnp.asarray(toks), axis=0), np.float32)
+    got = ts._embed_tokens(convert.tensor_from_numpy(table), torch.from_numpy(toks)).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got[0, :4]).all() and np.isnan(got[0, 4:7]).all()
+    assert np.array_equal(got[0, 2], got[0, 2]) and np.array_equal(got[0, 3], got[0, 0])
+    # through the whole tower: a NaN row poisons only its own text
+    toks = np.ones((2, jcfg.text_len), np.int32)
+    toks[1, 3] = v + 9
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, {"txt": params["txt"]}), _port_cfg(jcfg), "cpu")
+    e_t = ts.encode_text(tp, torch.from_numpy(toks), _port_cfg(jcfg)).numpy()
+    e_j = np.asarray(js.encode_text(params, jnp.asarray(toks), jcfg))
+    assert np.isfinite(e_t[0]).all() and np.isnan(e_t[1]).all() and np.isnan(e_j[1]).all()
+    np.testing.assert_allclose(e_t[0], e_j[0], atol=5e-2)
