@@ -15,7 +15,12 @@ Phases, in order; any failure exits non-zero with no result line:
    its plain version, one PyTorch library call for the same function,
    and its bound. The image kernels run at the image tower's shapes; the
    fused attention kernel at the text tower's (B, 64, 16, 72), in all
-   three stable modes at B=2, and once more at S=729, B=2.
+   three stable modes at B=2, and once more at S=729, B=2. The ADC kernel
+   at N = 1,000,003 codes of M = 64 bytes with B = 1 and B = 64 LUTs of
+   C = 256, at the JAX test's (300, 16) x (3, 16, 256), and at C = 16 with
+   codes up to 255 (rtol = atol = 1e-4); then timed at N = 1e6, B = 1 and
+   B = 64, beside its plain version and its bound (no single PyTorch call
+   computes it, so library_ms is null).
 4. Main path at full SO400M width (27 layers per tower, random weights
    from a seed, the hash tokenizer): one EmbeddingEngine holds both
    towers behind the service's InferenceWorker.
@@ -30,8 +35,18 @@ Phases, in order; any failure exits non-zero with no result line:
    All outputs must be finite and unit-norm, and three embeddings of
    each tower must agree (cos >= 0.999) with the same weights run on the
    CPU through the plain versions.
-5. One JSON line with every kernel's numbers, then the card's name and
-   power limit, then ``{"ok": true, "device": {...}}`` as the last line.
+   - Quantizers, at the deployment size of docs/scale1m_report.json
+     (N = 1e6, d = 1152): the port's ``tools/quantizer_bench`` trains OPQ
+     64x256 on a 50k sample with 64 queries, encodes the corpus and
+     scores the 64 queries one at a time (exactly 64 ADC launches and no
+     other kernel), then RaBitQ 512 and scalar u8. The transform must be
+     orthonormal (1e-3); 4,096 of the card's codes are held against the
+     CPU's (any that differ must be near ties: the CPU's best sim within
+     1e-4 of the sim of the card's code), and 2 queries' ADC scores
+     against the CPU's at 1e-4.
+5. One JSON line with every kernel's numbers, one with the quantizer
+   path's, then the card's name and power limit, then
+   ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -50,10 +65,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # Published dense bf16 peak and memory rate of the H100 SXM (NVIDIA data
 # sheet), the card this script is written for; any other card fails.
 CARD, PEAK_FLOPS, PEAK_BW = "H100 80GB HBM3", 989e12, 3.35e12
+# Shared-memory lookups a second: 32 banks of one 4-byte word a clock on
+# each of 132 SMs at the 1.98 GHz boost clock (the ADC kernel's operations)
+PEAK_SMEM_WORDS = 32 * 132 * 1.98e9
 
 B_CHECK, B_TIME = 2, 128
 CHECK_TOL = 0.05  # rtol = atol for the GEMM kernels (tests/test_fused.py)
 ATTN_TOL = 2e-2  # atol on valid rows for attention (tests/test_attention.py:98)
+ADC_TOL = 1e-4  # rtol = atol for ADC (tests/test_quantizers.py:175)
+ADC_N, ADC_M = 1_000_003, 64  # a corpus of 1e6 codes and a ragged tail
+NEAR_TIE = 1e-4  # a code may differ from the CPU's only within this of its best sim
 
 
 def log(*a):
@@ -117,7 +138,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from meme_search_engine_tpu_torch.models import siglip
-    from meme_search_engine_tpu_torch.ops import _build, attention, fused
+    from meme_search_engine_tpu_torch.ops import _build, adc, attention, fused
     from meme_search_engine_tpu_torch.serving.clip_server import InferenceWorker
     from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
 
@@ -331,6 +352,42 @@ def main() -> int:
     del big, kern, plain, lib  # the closures hold the B=128 inputs
     torch.cuda.empty_cache()
 
+    # the ADC kernel: N = 1,000,003 codes (a ragged last tile), LUTs of 256
+    codes = torch.randint(0, 256, (ADC_N, ADC_M), generator=gen, device=dev, dtype=torch.uint8)
+    luts = torch.randn((64, ADC_M, 256), generator=gen, device=dev)
+    small_codes = torch.randint(0, 256, (300, 16), generator=gen, device=dev, dtype=torch.uint8)
+    small_luts = torch.randn((3, 16, 256), generator=gen, device=dev)
+    narrow_luts = torch.randn((3, ADC_M, 16), generator=gen, device=dev)  # codes >= 16 score 0
+    adc_errs = {}
+    for key, cd, lt in (
+        ("max_abs_err", codes, luts[:1]),
+        ("max_abs_err_b64", codes, luts),
+        ("max_abs_err_n300_m16_b3", small_codes, small_luts),
+        ("max_abs_err_c16", codes[:100_003], narrow_luts),
+    ):
+        adc_errs[key] = check(f"adc_scores {key}", lt.shape[0],
+                              lambda: adc.adc_scores_batched(cd, lt),
+                              lambda: adc.adc_scores_plain(cd, lt), ADC_TOL, None)
+    results["adc_scores"] = {**adc_errs, "tolerance": ADC_TOL, "library_ms": None}
+    timed_codes = codes[:1_000_000]
+    n_t = timed_codes.shape[0]
+    for b, inner, suffix in ((1, 20, ""), (64, 2, "_b64")):
+        lt = luts[:b]
+        t_k = time_ms(lambda: adc.adc_scores_batched(timed_codes, lt), reps=10, inner=inner)
+        t_p = time_ms(lambda: adc.adc_scores_plain(timed_codes, lt), reps=3)
+        t_bytes = (n_t * ADC_M + b * n_t * 4 + lt.numel() * 4) / peak_bw * 1e3
+        t_ops = b * n_t * ADC_M / PEAK_SMEM_WORDS * 1e3
+        results["adc_scores"].update({
+            f"ms{suffix}": t_k, f"plain_ms{suffix}": t_p, f"bound_ms{suffix}": max(t_ops, t_bytes),
+            f"bound_by{suffix}": "operations" if t_ops >= t_bytes else "bytes",
+        })
+        log(f"time adc_scores B={b} N={n_t}: kernel {t_k:.4f} ms, plain {t_p:.3f} ms, "
+            f"bound {max(t_ops, t_bytes):.4f} ms ({results['adc_scores'][f'bound_by{suffix}']}: "
+            f"bytes {t_bytes:.4f}, lookups {t_ops:.4f}), "
+            f"{b * n_t * ADC_M / t_k / 1e9:.1f} G lookups/s")
+    del codes, luts, small_codes, small_luts, narrow_luts, timed_codes
+    torch.cuda.empty_cache()
+
     # -- 4. main path at full width -----------------------------------------
     from meme_search_engine_tpu_torch.serving.engine import pow2_buckets
 
@@ -352,13 +409,17 @@ def main() -> int:
     done: "queue.Queue" = queue.Queue()
 
     def launch_counts():
-        return {**fused.launches, **attention.launches}
+        return {**fused.launches, **attention.launches, **adc.launches}
+
+    def reset_counts():
+        fused.reset_launches()
+        attention.reset_launches()
+        adc.reset_launches()
 
     def serve(kind, requests):
         """Submit every request to the worker with the counts set to 0;
         returns the outputs and the launch counts of this run."""
-        fused.reset_launches()
-        attention.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         for i, payload in enumerate(requests):
             worker.submit(kind, payload, lambda ok, v, i=i: done.put((i, ok, v)))
@@ -401,6 +462,7 @@ def main() -> int:
         "ln_mlp_residual": cfg.depth,
         "fat_vit_mha": cfg.depth,
         "fused_mha": 0,
+        "adc_scores": 0,
     }, n_buckets)
     for i, imgs in enumerate(requests):
         check_embeddings(f"image request {i}", outs[i], len(imgs))
@@ -418,6 +480,7 @@ def main() -> int:
         "matmul_residual": 0,
         "ln_mlp_residual": 0,
         "fat_vit_mha": 0,
+        "adc_scores": 0,
     }, n_text_buckets)
     for i, texts in enumerate(text_requests):
         check_embeddings(f"text request {i}", text_outs[i], len(texts))
@@ -517,6 +580,97 @@ def main() -> int:
         f"{k} {v:.2f}" for k, v in split.items())
         + f"; sum {split_total:.1f} ms of {text_ms / text_buckets:.1f} ms per bucket")
     log(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del engine, worker, batch_out, text_out
+    torch.cuda.empty_cache()
+
+    # quantizers at the deployment size of docs/scale1m_report.json, through
+    # the port's tool as a user runs it; the training and encoding stages
+    # are timed by wrapping the functions the tool calls
+    from meme_search_engine_tpu_torch.index import opq, rabitq, scalar
+    from meme_search_engine_tpu_torch.tools import quantizer_bench
+
+    stages: dict = {}
+
+    def timed(owner, name):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, wrapper)
+        return fn
+
+    wrapped = [(o, n, timed(o, n)) for o, n in (
+        (opq, "train_opq"), (opq.ProductQuantizer, "asymmetric_dot"),
+        (rabitq, "train_rabitq"), (scalar, "train_scalar_quantizer"))]
+    n_corpus = 1_000_000
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = quantizer_bench.main(["--n", str(n_corpus)])
+    torch.cuda.synchronize()
+    q_wall = time.perf_counter() - t0
+    q_counts = launch_counts()
+    for o, n, fn in wrapped:
+        setattr(o, n, fn)
+    q_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"quantizer path: N={n_corpus} d={run.x.shape[1]} in {q_wall:.1f} s; stages (s) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; launches {q_counts}; peak memory {q_peak:.1f} GiB")
+    if run.x.shape != (n_corpus, cfg.d_emb) or run.x.device.type != "cuda":
+        fail(f"quantizer corpus {tuple(run.x.shape)} on {run.x.device}")
+    check_counts("quantizer", q_counts, {
+        "adc_scores": len(run.q), "ln_matmul": 0, "matmul_residual": 0,
+        "ln_mlp_residual": 0, "fat_vit_mha": 0, "fused_mha": 0,
+    }, 1)
+    if len(run.q) != 64:
+        fail(f"the tool scored {len(run.q)} queries, expected 64")
+    if set(run.results) != {"opq_64x256", "rabitq_512", "scalar_u8", "faiss"}:
+        fail(f"quantizer tool keys {sorted(run.results)}")
+    for name, r in run.results.items():
+        if name != "faiss" and not (r["encode_vecs_per_s"] > 0 and 0 < r["rank_agreement@20"] <= 1):
+            fail(f"quantizer tool {name}: {r}")
+    pq = run.pq
+    ortho = float(np.abs(pq.transform.astype(np.float64) @ pq.transform.T - np.eye(pq.n_dims)).max())
+    log(f"quantizer: max |R R^T - I| = {ortho:.2e}")
+    if not ortho <= 1e-3:
+        fail(f"the trained OPQ transform is not orthonormal: {ortho}")
+    # 4,096 rows spread over the corpus: the card's codes against the CPU's
+    rows = np.linspace(0, n_corpus - 1, 4096).astype(np.int64)
+    x_rows = run.x[torch.from_numpy(rows).to(dev)].cpu().numpy()
+    card_codes = run.codes[torch.from_numpy(rows).to(dev)].cpu().numpy()
+    cpu_codes = pq.quantize(x_rows, device="cpu")
+    r_i, k_i = np.nonzero(card_codes != cpu_codes)
+    dpc = pq.n_dims_per_code
+    xt = pq.apply_transform(x_rows[r_i], device="cpu").reshape(len(r_i), pq.n_chunks, dpc)
+    sims = np.einsum("rd,crd->rc", xt[np.arange(len(r_i)), k_i],
+                     pq.centroids.reshape(pq.n_centroids, pq.n_chunks, dpc)[:, k_i])
+    gap = sims.max(-1, initial=-np.inf) - sims[np.arange(len(r_i)), card_codes[r_i, k_i]]
+    code_share = float((card_codes == cpu_codes).mean())
+    log(f"quantizer: card codes equal to the CPU's: {code_share:.6f} of {card_codes.size} "
+        f"({len(r_i)} differ; largest gap to the CPU's best sim {gap.max(initial=0):.2e})")
+    if not (gap <= NEAR_TIE).all():
+        fail(f"{int((gap > NEAR_TIE).sum())} card codes differ from the CPU's by more than "
+             f"a near tie (largest gap {gap.max()})")
+    adc_vs_cpu = []
+    for b in range(2):
+        lut = pq.preprocess_query(run.q[b].cpu().numpy())
+        got = pq.asymmetric_dot(lut, run.codes).cpu()
+        want = torch.from_numpy(pq.asymmetric_dot(lut, run.codes.cpu().numpy(), device="cpu"))
+        err, ok = compare(got[None], want[None], ADC_TOL)
+        adc_vs_cpu.append(err)
+        log(f"quantizer: query {b} asymmetric_dot card vs CPU max_abs_err {err:.3e} "
+            f"(tol {ADC_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"asymmetric_dot on the card disagrees with the CPU for query {b}: {err}")
+    run_results = run.results
+    del run
+    torch.cuda.empty_cache()
 
     # -- 5. result lines ----------------------------------------------------
     src = "meme_search_engine_tpu_torch/ops/csrc/"
@@ -544,6 +698,11 @@ def main() -> int:
         if name == "fused_mha":
             e.update({k: v for k, v in results[name].items() if k.startswith("max_abs_err_")})
         kernels.append(e)
+    # ms, plain_ms and bound_ms at B = 1 (the tool's call); the *_b64 keys at
+    # B = 64, both at N = 1e6, M = 64, C = 256
+    kernels.append({"name": "adc_scores", "route": "cuda", "source": src + "adc.cu",
+                    "replaces": "meme_search_engine_tpu/ops/adc.py:91",
+                    "launches": q_counts["adc_scores"], **results["adc_scores"]})
     print(json.dumps({
         "kernels": kernels,
         "engine": {"batch": B_TIME, "ms": batch_ms, "images_per_s": B_TIME / batch_ms * 1e3,
@@ -552,6 +711,12 @@ def main() -> int:
                  "fused_mha_ms": text_kernel_ms, "layer_split_ms_per_bucket": split,
                  "cpu_cos": text_coss},
     }), flush=True)
+    print(json.dumps({"quantizer": {
+        "n": n_corpus, "d": cfg.d_emb, "wall_s": q_wall, "stages_s": stages,
+        "peak_gib": q_peak, "tool": run_results, "transform_max_ortho_err": ortho,
+        "codes_equal_to_cpu": code_share, "codes_compared": int(card_codes.size),
+        "adc_vs_cpu_max_abs_err": adc_vs_cpu,
+    }}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,10 @@ Marked ``cuda``: each test skips on a host without a GPU. These shapes
 are chosen to hit the kernels' edges (rows and columns that do not fill a
 tile, ragged key tiles, narrow heads, strided views); chip_smoke.py
 checks the SO400M shapes. Tolerances: 0.05 for the GEMMs
-(tests/test_fused.py), atol 2e-2 for attention (tests/test_attention.py:98). This file imports neither JAX nor the JAX package, so on the GPU
-machine it runs without the repository's conftest:
+(tests/test_fused.py), atol 2e-2 for attention (tests/test_attention.py:98),
+rtol = atol = 1e-4 for ADC (tests/test_quantizers.py:175). This file
+imports neither JAX nor the JAX package, so on the GPU machine it runs
+without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -13,7 +15,7 @@ machine it runs without the repository's conftest:
 import pytest
 import torch
 
-from meme_search_engine_tpu_torch.ops import attention, fused
+from meme_search_engine_tpu_torch.ops import adc, attention, fused
 
 pytestmark = pytest.mark.cuda
 
@@ -236,3 +238,108 @@ def _to_cuda(tree):
     if isinstance(tree, dict):
         return {k: _to_cuda(v) for k, v in tree.items()}
     return tree.cuda()
+
+
+@pytest.mark.parametrize("c", [16, 256])
+@pytest.mark.parametrize("m", [8, 16, 64])
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_adc_kernel(gen, b, m, c):
+    """Ragged N (not a multiple of the 4096-row tile nor of 256 threads);
+    codes up to 255 also where C = 16, which score 0."""
+    n = 10_007
+    codes = torch.randint(0, 256, (n, m), generator=gen, device="cuda", dtype=torch.uint8)
+    luts = torch.randn((b, m, c), generator=gen, device="cuda")
+    adc.reset_launches()
+    got = adc.adc_scores_batched(codes, luts)
+    torch.cuda.synchronize()
+    assert adc.launches["adc_scores"] == 1
+    assert got.shape == (b, n) and got.dtype == torch.float32
+    torch.testing.assert_close(got, adc.adc_scores_plain(codes, luts), rtol=1e-4, atol=1e-4)
+    one = adc.adc_scores(codes, luts[0])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(one, got[0], rtol=1e-4, atol=1e-4)
+    assert adc.launches["adc_scores"] == 2
+
+
+def test_adc_kernel_byte_loads_on_unaligned_codes(gen):
+    """Codes whose base is not 16-byte aligned take the byte-load route."""
+    n, m = 5000, 64
+    flat = torch.randint(0, 256, (n * m + 1,), generator=gen, device="cuda", dtype=torch.uint8)
+    codes = flat.narrow(0, 1, n * m).view(n, m)
+    assert codes.data_ptr() % 16 and codes.is_contiguous()
+    luts = torch.randn((2, m, 256), generator=gen, device="cuda")
+    got = adc.adc_scores_pallas(codes, luts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, adc.adc_scores_plain(codes, luts), rtol=1e-4, atol=1e-4)
+
+
+def test_adc_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    codes = torch.randint(0, 256, (100, 16), generator=gen, device="cuda", dtype=torch.uint8)
+    luts = torch.randn((2, 16, 256), generator=gen, device="cuda")
+    with pytest.raises(TypeError, match="codes"):
+        adc.adc_scores_batched(codes.int(), luts)
+    with pytest.raises(TypeError, match="codes"):
+        adc.adc_scores_batched(codes.t().contiguous().t(), luts)
+    with pytest.raises(TypeError, match="luts"):
+        adc.adc_scores_batched(codes, luts.double())
+    with pytest.raises(TypeError, match="luts"):
+        adc.adc_scores_batched(codes, luts.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="at most 256"):
+        adc.adc_scores_batched(codes, torch.randn((2, 16, 300), device="cuda"))
+    with pytest.raises(ValueError, match="chunks"):
+        adc.adc_scores_batched(codes, luts[:, :8].contiguous())
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros((4, 240), device="cuda", dtype=torch.uint8)
+        adc.adc_scores_batched(wide, torch.zeros((1, 240, 256), device="cuda"))
+    with pytest.raises(ValueError):
+        adc.adc_scores_batched(codes, luts.cpu())
+    torch.cuda.synchronize()
+
+
+def test_quantize_on_the_card_matches_the_cpu_within_near_ties(gen):
+    """The card's codes equal the CPU's, except where the CPU's two best
+    sims lie within 1e-4 of each other; the card's asymmetric_dot agrees
+    with the CPU's at 1e-4."""
+    import numpy as np
+
+    from meme_search_engine_tpu_torch.index.opq import ProductQuantizer
+
+    rng = np.random.default_rng(0)
+    d, c, dpc, n = 1152, 256, 18, 4096
+    pq = ProductQuantizer(
+        rng.standard_normal((c, d)).astype(np.float32) * 0.1,
+        np.linalg.qr(rng.standard_normal((d, d)))[0].astype(np.float32), dpc, d,
+    )
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    card = pq.quantize(x)  # device="cuda" by default
+    cpu = pq.quantize(x, device="cpu")
+    rows, ks = np.nonzero(card != cpu)
+    xt = (x[rows] @ pq.transform.T).reshape(len(rows), d // dpc, dpc)[np.arange(len(rows)), ks]
+    sims = np.einsum("rd,crd->rc", xt, pq.centroids.reshape(c, d // dpc, dpc)[:, ks])
+    gap = sims.max(-1, initial=-np.inf) - sims[np.arange(len(rows)), card[rows, ks]]
+    assert (gap <= 1e-4).all(), gap.max()
+    assert (card == cpu).mean() > 0.999
+    codes_dev = torch.from_numpy(card).cuda()
+    adc.reset_launches()
+    for i in range(2):
+        lut = pq.preprocess_query(x[i])
+        got = pq.asymmetric_dot(lut, codes_dev)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), torch.from_numpy(pq.asymmetric_dot(lut, card, device="cpu")),
+                                   rtol=1e-4, atol=1e-4)
+    assert adc.launches["adc_scores"] == 2
+
+
+def test_quantizer_tool_on_the_card(capsys):
+    """The tool at a small size on the card: one ADC launch per query."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from meme_search_engine_tpu_torch.tools import quantizer_bench
+
+    adc.reset_launches()
+    run = quantizer_bench.main(["--n", "3000", "--d-emb", "512"])
+    assert adc.launches["adc_scores"] == len(run.q) == 64
+    assert run.codes.device.type == "cuda" and run.x.device.type == "cuda"
+    assert set(run.results) == {"opq_64x256", "rabitq_512", "scalar_u8", "faiss"}
