@@ -240,17 +240,13 @@ def train_opq(
             if pause_point is not None and it % 16 == 0:
                 pause_point()
             qs = q_dev[qidx[it]]
-            # mean over (query, row) of (q . r)^2 = sum_rows r^T G r / (Q B)
-            # with G = qs^T qs: one (D, D) product per step in place of a
-            # (Q, B) error matrix per batch, about half the operations
-            gram = (qs.T @ qs) / (qs.shape[0] * xp.shape[1])
             opt.zero_grad(set_to_none=False)
             # loss = sum over batches of the mean squared query error; one
             # backward per batch accumulates the same gradient
             loss = torch.zeros((), device=dev)
             for batch in xp:
                 residual = batch - _pq_assign_reconstruct(cen, batch, n_dims_per_code)
-                batch_loss = torch.sum((residual @ gram) * residual)
+                batch_loss = torch.mean(torch.square(qs @ residual.T))
                 batch_loss.backward()
                 loss += batch_loss.detach()
             opt.step()

@@ -42,6 +42,10 @@ LUT_WIDTH = 256
 # The kernel holds one query's (M, 256) fp32 LUT in shared memory: 227 KB
 # a CTA on Hopper allows M <= 227.
 MAX_CHUNKS = 227
+# Rows a CTA of the kernel takes; its one-dimensional grid holds at most
+# 2^31 - 1 CTAs of (query, row tile).
+TILE_ROWS = 4096
+MAX_CTAS = 2**31 - 1
 
 
 def reset_launches() -> None:
@@ -85,6 +89,8 @@ def _launch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"luts have {c} entries per chunk; the kernel takes at most {LUT_WIDTH}")
     if not 1 <= m <= MAX_CHUNKS:
         raise ValueError(f"{m} chunks: the kernel's LUT in shared memory holds 1 to {MAX_CHUNKS}")
+    if b * -(-n // TILE_ROWS) > MAX_CTAS:
+        raise ValueError(f"{b} queries x {n} rows need more than {MAX_CTAS} CTAs of {TILE_ROWS} rows")
     out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
     if n == 0 or b == 0:  # an empty grid is not a launch CUDA takes
         return out

@@ -23,9 +23,10 @@
 // launch), then each thread walks the tile's rows 256 apart: a warp reads
 // 32 neighbouring rows, 2 KB in one stretch, a thread its row's M bytes as
 // 16-byte loads where M % 16 == 0 (byte loads otherwise), and sums its M
-// lookups in a register. The query is the grid's fastest dimension, so the
-// CTAs of all queries over one row tile run together and read its codes
-// from L2 rather than from device memory once per query.
+// lookups in a register. The grid is one dimension of B * tiles CTAs (up to
+// 2^31 - 1) with the query fastest, so the CTAs of all queries over one row
+// tile run together and read its codes from L2 rather than from device
+// memory once per query.
 //
 // Bank conflicts: a chunk's 256 entries cover the 32 banks eight times, so
 // a lookup's bank is its code mod 32, whatever the chunk. The 32 lanes of a
@@ -50,10 +51,10 @@ template <bool VEC>
 __global__ void __launch_bounds__(NT) adc_kernel(const uint8_t* __restrict__ codes,
                                                  const float* __restrict__ luts,
                                                  float* __restrict__ out, long long N,
-                                                 int M, int C, long long rows) {
+                                                 int M, int C, int B) {
   extern __shared__ float lut[];  // (M, LUT_WIDTH)
-  const long long b = blockIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.y) * rows;
+  const long long b = blockIdx.x % B;
+  const long long row0 = static_cast<long long>(blockIdx.x / B) * ROWS;
   const float* src = luts + b * M * C;
   for (int i = threadIdx.x; i < M * LUT_WIDTH; i += NT) {
     const int m = i / LUT_WIDTH, c = i % LUT_WIDTH;
@@ -61,7 +62,7 @@ __global__ void __launch_bounds__(NT) adc_kernel(const uint8_t* __restrict__ cod
   }
   __syncthreads();
 
-  const long long row_end = min(row0 + rows, N);
+  const long long row_end = min(row0 + ROWS, N);
   for (long long n = row0 + threadIdx.x; n < row_end; n += NT) {
     const uint8_t* row = codes + n * M;
     float acc = 0.f;
@@ -89,11 +90,10 @@ int launch(const uint8_t* codes, const float* luts, float* out, long long N, int
   cudaError_t err = cudaFuncSetAttribute(
       adc_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // grid.y is at most 65535: a corpus past 65535 * ROWS rows gets longer tiles
-  long long rows = ROWS;
-  if ((N + rows - 1) / rows > 65535) rows = ((N + 65534) / 65535 + NT - 1) / NT * NT;
-  dim3 grid(B, static_cast<unsigned>((N + rows - 1) / rows));
-  adc_kernel<VEC><<<grid, NT, bytes, stream>>>(codes, luts, out, N, M, C, rows);
+  const long long ctas = static_cast<long long>(B) * ((N + ROWS - 1) / ROWS);
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  adc_kernel<VEC><<<static_cast<unsigned>(ctas), NT, bytes, stream>>>(codes, luts, out, N, M,
+                                                                       C, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -103,7 +103,8 @@ extern "C" {
 
 // out(B, N) fp32 from contiguous codes (N, M) uint8 and LUTs (B, M, C) fp32.
 // Needs 1 <= M <= 227 (the LUT's M * 1 KB of shared memory), C <= 256,
-// N >= 1 and 1 <= B <= 2^31 - 1.
+// N >= 1, B >= 1 and B * ceil(N / 4096) <= 2^31 - 1 (the grid's CTAs;
+// otherwise it returns cudaErrorInvalidConfiguration and launches nothing).
 int mse_adc(const void* codes, const void* luts, void* out, long long N, int M, int C,
             int B, void* stream) {
   const uint8_t* c = static_cast<const uint8_t*>(codes);

@@ -10,6 +10,12 @@ each query's top-k is taken there; top-k sets differ from an argsort's only
 at exact ties. Without ``--vectors`` the corpus is the synthetic unit-norm
 one, drawn on the device from a seeded ``torch.Generator``.
 
+``encode_vecs_per_s`` keeps the JAX tool's key but times less: the encode
+of a corpus that already lies on the device, with the codes left there.
+The JAX tool's figure also holds the corpus's upload and the codes' copy
+to the host (its scalar codec encodes on the host), so the two figures are
+not to be read against each other.
+
 Usage:
   python -m meme_search_engine_tpu_torch.tools.quantizer_bench \
       [--vectors x.bin --queries q.bin --d-emb 1152] [--n 20000] [--device cpu]

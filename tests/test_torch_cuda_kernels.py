@@ -293,6 +293,10 @@ def test_adc_wrapper_refuses_what_the_kernel_does_not_take(gen):
         adc.adc_scores_batched(wide, torch.zeros((1, 240, 256), device="cuda"))
     with pytest.raises(ValueError):
         adc.adc_scores_batched(codes, luts.cpu())
+    # 2^16 queries x 2^15 row tiles: one CTA past the grid's 2^31 - 1
+    many = torch.zeros((32767 * adc.TILE_ROWS + 1, 1), device="cuda", dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CTAs"):
+        adc.adc_scores_batched(many, torch.zeros((2**16, 1, 256), device="cuda"))
     torch.cuda.synchronize()
 
 

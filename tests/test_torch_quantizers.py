@@ -333,3 +333,44 @@ def test_quantizer_bench_on_the_cpu(capsys):
         assert 0 < r["rank_agreement@20"] <= 1
     assert run.codes.shape == (2000, 64) and run.codes.dtype == torch.uint8
     assert tadc.launches["adc_scores"] == 0  # the CPU run launches no kernel
+
+
+# Rank agreement@20 of the two tools on one corpus. The scalar quantizer
+# trains the same numpy on both sides, so its figure agrees to a few of the
+# 1,280 top-20 slots. OPQ and RaBitQ train from different random draws
+# (jax.random against torch.Generator): over corpus seeds 0-3 of both kinds
+# the tools differed by at most 0.025 for either codec, and the JAX tool's
+# own figure spread by 0.03 over those seeds; 0.05 leaves room for that.
+SCALAR_BAND, TRAINED_BAND = 0.002, 0.05
+
+
+@pytest.mark.parametrize("kind", ["isotropic", "low_rank"])
+def test_quantizer_bench_agrees_with_the_jax_tool(kind, tmp_path, capsys):
+    """Both tools on one fp16 corpus and query file: unit vectors drawn
+    isotropically (the synthetic corpus of both tools) or near a rank-16
+    subspace, so the codecs have structure to find."""
+    from meme_search_engine_tpu.tools import quantizer_bench as jbench
+    from meme_search_engine_tpu_torch.tools import quantizer_bench as tbench
+
+    rng = np.random.default_rng(0)
+    n, d = 2000, 512
+    if kind == "isotropic":
+        x, q = rng.standard_normal((n, d)), rng.standard_normal((64, d))
+    else:
+        w = rng.standard_normal((16, d))
+        x = rng.standard_normal((n, 16)) @ w + 1.2 * rng.standard_normal((n, d))
+        q = rng.standard_normal((64, 16)) @ w + 1.2 * rng.standard_normal((64, d))
+    for a, path in ((x, "x.bin"), (q, "q.bin")):
+        (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float16).tofile(tmp_path / path)
+    argv = ["--vectors", str(tmp_path / "x.bin"), "--queries", str(tmp_path / "q.bin"),
+            "--d-emb", str(d), "--n", str(n)]
+    jbench.main(argv)
+    want = json.loads(capsys.readouterr().out)
+    tbench.main(argv + ["--device", "cpu"])
+    got = json.loads(capsys.readouterr().out)
+    assert set(got) == set(want)
+    for name, band in (("opq_64x256", TRAINED_BAND), ("rabitq_512", TRAINED_BAND),
+                       ("scalar_u8", SCALAR_BAND)):
+        assert got[name]["bytes_per_vec"] == want[name]["bytes_per_vec"]
+        g, w_ = got[name]["rank_agreement@20"], want[name]["rank_agreement@20"]
+        assert abs(g - w_) <= band, (name, g, w_)
