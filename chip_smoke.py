@@ -23,7 +23,13 @@ Phases, in order; any failure exits non-zero with no result line:
    the same function (``F.embedding_bag(mode="sum")`` over the LUTs
    zero-padded to 256 entries as a (M * 256, B) table, bag n holding the
    indices codes[n, m] + 256 m; it answers (N, B), held against the plain
-   version at 1e-4 too).
+   version at 1e-4 too). The row gather bit for bit (tolerance 0) at the
+   shard build's hop shape, (1024, 128) ids into 48,643 x 1152 bf16, at
+   its prune shape (1024, 750), the hop shape in int8, near the end of a
+   1e6 x 1152 bf16 corpus (past 2^31 bytes), at D = 32 and 72 in int8, at
+   (3, 50) and (1, 1) ids, with ids out of range (clamped) and with no ids
+   (no launch); then timed at the hop and prune shapes beside its plain
+   version, ``torch.index_select`` and its bound.
 4. Main path at full SO400M width (27 layers per tower, random weights
    from a seed, the hash tokenizer): one EmbeddingEngine holds both
    towers behind the service's InferenceWorker.
@@ -47,9 +53,25 @@ Phases, in order; any failure exits non-zero with no result line:
      CPU's (any that differ must be near ties: the CPU's best sim within
      1e-4 of the sim of the card's code), and 2 queries' ADC scores
      against the CPU's at 1e-4.
+   - The shard build, as the JAX package's tools/scale_bench.py runs it
+     at the 1e6 deployment (``shard_build``): 1e6 vectors of d = 1152 by
+     its hierarchical recipe, drawn on the card; the port's balanced
+     k-means (42 clusters, 200k sample, 120 annealing steps); the top-2
+     split; ``build_shard_graph`` on shard 0 with 1,024 OOD queries, R 64,
+     L 192, maxc 750, batch 1,024, bf16, each build stage timed. The
+     graph must be well formed and stitched, reach self-recall@1 >= 0.95
+     and recall@10 >= 0.80 (ann_bench's protocol over 512 base rows).
+     One round's greedy search runs again under torch.profiler: the
+     card's time a hop against the build's wall time a hop.
+     64 nodes searched and pruned on the card must agree with the CPU:
+     in bf16, pool ids on >= 99% and scores within 1e-5, and every pruned
+     row that differs must hold a decision within 1e-5 of its threshold;
+     in int8, whose sums are exact integers, everything must be equal.
+     ``gather_rows`` must launch once per hop, prune and re-prune chunk,
+     and no other kernel; no earlier path may launch it.
 5. One JSON line with every kernel's numbers, one with the quantizer
-   path's, then the card's name and power limit, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+   path's, one with the graph build's, then the card's name and power
+   limit, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -78,6 +100,9 @@ ATTN_TOL = 2e-2  # atol on valid rows for attention (tests/test_attention.py:98)
 ADC_TOL = 1e-4  # rtol = atol for ADC (tests/test_quantizers.py:175)
 ADC_N, ADC_M = 1_000_003, 64  # a corpus of 1e6 codes and a ragged tail
 NEAR_TIE = 1e-4  # a code may differ from the CPU's only within this of its best sim
+# the row gather at the shard build's shapes: a corpus of about the shard's
+# node count, the hop's (batch, expand x R) ids and the prune's (batch, maxc)
+GATHER_N, GATHER_HOP, GATHER_PRUNE = 48_643, (1024, 128), (1024, 750)
 
 
 def log(*a):
@@ -132,6 +157,258 @@ def compare(got, want, tol, rows=None):
     return float(d.max()), bool((d <= tol + tol * w.abs()).all())
 
 
+def hier_corpus(n: int, d: int, device, seed: int = 0, chunk: int = 100_000):
+    """(n, d) fp32 unit vectors on ``device`` by the recipe of the JAX
+    package's tools/scale_bench.py:28-62: 64 super centres, n/500 fine
+    centres around them at scale 0.55, each point a fine centre plus noise
+    at 0.45, L2-normalised; drawn on the device from ``seed``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    supers = torch.randn((64, d), generator=g, device=device)
+    n_fine = max(64, n // 500)
+    fines = supers[torch.arange(n_fine, device=device) % 64] + 0.55 * torch.randn(
+        (n_fine, d), generator=g, device=device)
+    x = torch.empty((n, d), device=device)
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        c = torch.randint(0, n_fine, (m,), generator=g, device=device)
+        xs = fines[c] + 0.45 * torch.randn((m, d), generator=g, device=device)
+        x[s : s + m] = xs / xs.norm(dim=1, keepdim=True)
+    return x
+
+
+def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
+                n: int = 1_000_000, d: int = 1152) -> dict:
+    """The per-shard Vamana build as the JAX package's scale_bench runs it
+    at the 1e6 deployment: k-means 42 over a 200k sample, the top-2 split,
+    then shard 0 with 1,024 OOD queries at R/L/maxc 64/192/750, batch
+    1,024. Checks the graph, its recall (ann_bench's protocol), the card
+    against the CPU on 64 nodes and the gather's launches; returns the
+    ``graph`` JSON object."""
+    import torch
+
+    from meme_search_engine_tpu_torch.index import kmeans, vamana
+    from meme_search_engine_tpu_torch.ops import mips
+    from meme_search_engine_tpu_torch.pipeline import build_shard
+
+    k_clusters, n_ood = 42, 1024
+    r, l, maxc, batch = 64, 192, 750, 1024
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    x = hier_corpus(n, d, dev)
+    torch.cuda.synchronize()
+    t_corpus = time.perf_counter() - t0
+    # the rows are independent draws, so the first 200k are a uniform
+    # sample; fp16, as the reference's sample file holds it
+    t0 = time.perf_counter()
+    centroids = kmeans.balanced_kmeans(x[:200_000].half().float(), k_clusters, max_iter=120, seed=0)
+    t_kmeans = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    top2 = kmeans.assign_top_k(x, centroids)
+    counts = torch.bincount(top2.reshape(-1), minlength=k_clusters).cpu().numpy()
+    rows = (top2 == 0).any(dim=1).nonzero()[:, 0]
+    base = x[rows].half().float().cpu().numpy()  # fp16, as the shard file holds it
+    torch.cuda.synchronize()
+    t_split = time.perf_counter() - t0
+    del x, top2, rows
+    torch.cuda.empty_cache()
+    balance = {"max_over_ideal": float(counts.max() / (2 * n / k_clusters)),
+               "p95_over_median": float(np.percentile(counts, 95) / np.median(counts))}
+    n_base = len(base)
+    log(f"graph: corpus {n} x {d} in {t_corpus:.1f} s; k-means {k_clusters} over {min(n, 200_000)} in "
+        f"{t_kmeans:.1f} s, top-2 counts max/ideal {balance['max_over_ideal']:.3f}, p95/median "
+        f"{balance['p95_over_median']:.3f}; split in {t_split:.1f} s: shard 0 holds {n_base} rows")
+    qrng = np.random.default_rng(7)
+    queries = qrng.standard_normal((n_ood, d)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+
+    stages: dict = {}
+    calls: dict = {}
+    names = ("_batched_greedy_search", "_batched_robust_prune", "_insert_back_edges",
+             "_reprune_overflow", "_score_sort_prune", "robust_stitch", "medioid_dev")
+    wrapped = [(n_, timed(vamana, n_, stages, calls)) for n_ in names]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph, med = build_shard.build_shard_graph(
+        base, queries, r=r, l=l, maxc=maxc, batch_size=batch, build_expand=2,
+        corpus_dtype="bf16", seed=0, pad_to=0,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for n_, fn in wrapped:
+        setattr(vamana, n_, fn)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_total = n_base + n_ood
+    rounds = -(-n_total // batch)
+    log(f"graph: built {n_total} nodes ({rounds} rounds) in {wall:.1f} s; stages (s) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; calls {calls}; launches {launches}; peak memory {peak:.1f} GiB")
+
+    # structure
+    if graph.shape != (n_total, r) or graph.min() < -1 or graph.max() >= n_total:
+        fail(f"graph shape {graph.shape}, ids in [{graph.min()}, {graph.max()}]")
+    if (graph[:n_base] >= n_base).any():
+        fail(f"{int((graph[:n_base] >= n_base).sum())} base->query edges after the stitch")
+    degrees = (graph[:n_base] >= 0).sum(axis=1)
+    if degrees.min() < 1 or not 0 <= med < n_base:
+        fail(f"base degree min {degrees.min()}, medioid {med}")
+    if n_total > 100_000:  # build_graph checks its device mirror up to 1e5 nodes
+        fail(f"shard of {n_total} nodes: build_graph skipped its device-mirror check")
+    expected = calls["hops"] + calls["_batched_robust_prune"] + calls["_score_sort_prune"]
+    check_counts("graph", launches, {
+        "gather_rows": expected, "ln_matmul": 0, "matmul_residual": 0, "ln_mlp_residual": 0,
+        "fat_vit_mha": 0, "fused_mha": 0, "adc_scores": 0,
+    }, 1)
+
+    # quality, by ann_bench's protocol over 512 base rows
+    vectors = np.concatenate([base, queries])
+    cfg = vamana.VamanaConfig(r=r, l=l, maxc=maxc, query_breakpoint=n_base)
+    sample = np.random.default_rng(1).permutation(n_base)[:512]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _s, ids, steps = vamana.search(vectors, graph, base[sample], 10, cfg)
+    qps = len(sample) / (time.perf_counter() - t0)
+    self_recall = float((ids[:, 0] == sample).mean())
+    exact = mips.mips_topk(torch.from_numpy(base.astype(np.float16)).to(dev),
+                           torch.from_numpy(base[sample]).to(dev), 10)[1].cpu().numpy()
+    recall10 = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10 for a, b in zip(ids, exact)]))
+    log(f"graph: search of {len(sample)} base rows, k 10, L {l}: self-recall@1 {self_recall:.4f}, "
+        f"recall@10 {recall10:.4f}, {qps:.1f} QPS, {steps} hops")
+    if ids.max() >= n_base:
+        fail("search returned an OOD query node")
+    if not (self_recall >= 0.95 and recall10 >= 0.80):
+        fail(f"graph quality below the floors: self-recall@1 {self_recall}, recall@10 {recall10}")
+
+    # one round's greedy search again under the profiler: the card's time a
+    # hop, set against the hop's wall time in the (unprofiled) build, whose
+    # difference is the host's launch and sync overhead
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    corpus = vamana._corpus_on_device(vectors, "bf16", dev)
+    round_nodes = torch.from_numpy(np.random.default_rng(3).permutation(n_total)[:batch]).to(dev)
+    graph_dev = torch.from_numpy(graph).to(dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _ps, _pi, round_hops = vamana._batched_greedy_search(
+            corpus, graph_dev, corpus[round_nodes], med, n_base, round_nodes >= n_base,
+            l=l, maxc=maxc, max_steps=-(-2 * l // 2), expand=2,
+        )
+        torch.cuda.synchronize()
+        round_wall = time.perf_counter() - t0
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_card) / 1e6 if on_card else None
+    hop_wall_ms = stages["_batched_greedy_search"] / calls["hops"] * 1e3
+    by_name: dict = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    profiled = {"wall_s": round_wall, "hops": round_hops, "device_ops": len(on_card),
+                "device_s": busy, "build_hop_wall_ms": hop_wall_ms,
+                "device_ms_per_hop": busy / round_hops * 1e3 if on_card else None,
+                "top_device_ms_per_hop": {k[:100]: us / round_hops / 1e3 for k, us in top}}
+    log(f"graph: one round's greedy search profiled: {round_hops} hops in {round_wall:.3f} s "
+        f"(profiled), {len(on_card) / round_hops:.1f} device ops a hop, the card busy "
+        + (f"{busy / round_hops * 1e3:.3f} ms a hop against {hop_wall_ms:.3f} ms of wall time a hop "
+           f"in the build ({busy / round_hops * 1e3 / hop_wall_ms:.1%})" if on_card
+           else "not measured (no device events)"))
+    for k, us in top:
+        log(f"  {us / round_hops / 1e3:.4f} ms a hop: {k[:100]}")
+    del corpus, graph_dev, _ps, _pi, prof
+
+    # the card against the CPU: 64 nodes of the finished graph through a
+    # greedy search and a prune with the build's parameters, in bf16 and in
+    # int8; the CPU's prune runs once more on the card's pools
+    nodes = np.sort(np.random.default_rng(2).choice(n_total, 64, replace=False)).astype(np.int32)
+    is_q = nodes >= n_base
+
+    def search_prune(c):
+        ps, pi, _ = vamana._batched_greedy_search(
+            c, torch.from_numpy(graph).to(c.device), c[torch.from_numpy(nodes).to(c.device).long()],
+            med, n_base, torch.from_numpy(is_q).to(c.device),
+            l=l, maxc=maxc, max_steps=-(-2 * l // 2), expand=2,
+        )
+        return ps.cpu(), pi.cpu(), prune(c, pi, ps)
+
+    def prune(c, pi, ps):
+        return vamana._batched_robust_prune(
+            c, torch.from_numpy(nodes).to(c.device), pi.to(c.device), ps.to(c.device), cfg.alpha,
+            cfg.query_alpha, n_base, torch.from_numpy(is_q).to(c.device), r=r,
+        ).cpu().numpy()
+
+    def prune_margin(c, node, ids, scores):
+        """Smallest |alpha_c dot(c, p*) - score(c)| over the live candidates
+        at each pick of one node's prune, in fp32 on the CPU as the prune:
+        how near its closest decision came to flipping."""
+        ok = ids != vamana.INVALID
+        v = c[torch.from_numpy(np.where(ok, ids, 0)).long()].float()
+        pair = (v @ v.T).numpy()
+        alpha = np.where(ids >= n_base, np.float32(cfg.query_alpha), np.float32(cfg.alpha))
+        alive = ok & (ids != node)
+        margin = np.inf
+        for _ in range(r):
+            if not alive.any():
+                break
+            pick = int(np.argmax(alive))
+            dom = alpha * pair[pick] - scores
+            margin = min(margin, float(np.abs(dom[alive]).min()))
+            alive &= dom < 0
+            alive[pick] = False
+        return margin
+
+    agreement = {}
+    for dtype in ("bf16", "int8"):
+        card = vamana._corpus_on_device(vectors, dtype, dev)
+        host = card.cpu()
+        t0 = time.perf_counter()
+        cs, ci, cp = search_prune(card)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hs, hi, hp = search_prune(host)
+        hp_same = prune(host, ci, cs)
+        t_cpu = time.perf_counter() - t0
+        del card
+        cs, ci, hs, hi = cs.numpy(), ci.numpy(), hs.numpy(), hi.numpy()
+        finite = np.isfinite(cs) | np.isfinite(hs)
+        differs = ~(cp == hp).all(axis=1) | ~(cp == hp_same).all(axis=1)
+        margins = [prune_margin(host, nodes[i], ci[i], cs[i]) for i in np.flatnonzero(differs)]
+        a = {
+            "pool_ids_equal": float((ci == hi).mean()),
+            "pools_differing": int((~(ci == hi).all(axis=1)).sum()),
+            "max_score_gap": float(np.abs(cs[finite] - hs[finite]).max(initial=0.0)),
+            "pruned_rows_equal": float((cp == hp).all(axis=1).mean()),
+            "pruned_rows_equal_on_the_cards_pools": float((cp == hp_same).all(axis=1).mean()),
+            "differing_rows_min_margin": margins,
+        }
+        agreement[dtype] = a
+        log(f"graph: card vs CPU, {dtype}, 64 nodes (card {t_card:.1f} s, CPU {t_cpu:.1f} s): pool ids "
+            f"equal on {a['pool_ids_equal']:.6f} of {ci.size} ({a['pools_differing']} pools differ "
+            f"somewhere), largest score gap {a['max_score_gap']:.2e}; pruned rows equal on "
+            f"{a['pruned_rows_equal']:.4f}, on the card's pools {a['pruned_rows_equal_on_the_cards_pools']:.4f}; "
+            f"smallest decision margin of each differing row {margins}")
+        ok = (a["pool_ids_equal"] >= 0.99 and a["max_score_gap"] <= 1e-5
+              and bool((np.isinf(cs) == np.isinf(hs)).all()) and all(m <= 1e-5 for m in margins))
+        if dtype == "int8":  # exact integer sums: nothing may differ
+            ok = ok and a["pool_ids_equal"] == 1.0 and not differs.any()
+        if not ok:
+            fail(f"card and CPU disagree beyond near ties ({dtype}): {a}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"graph: the phase took {phase_s:.1f} s")
+    return {
+        "n": n, "d": d, "clusters": k_clusters, "n_base": n_base, "n_total": n_total,
+        "corpus_s": t_corpus, "kmeans_s": t_kmeans, "split_s": t_split, "balance": balance,
+        "stages_s": stages, "wall_s": wall, "rounds": rounds, "hops": calls["hops"],
+        "prunes": calls["_batched_robust_prune"], "reprune_chunks": calls["_score_sort_prune"],
+        "launches": launches, "self_recall@1": self_recall, "recall@10": recall10, "qps": qps,
+        "search_hops": steps, "profiled_round": profiled, "card_vs_cpu_64_nodes": agreement,
+        "peak_gib": peak, "medioid": med, "phase_s": phase_s,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -141,7 +418,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from meme_search_engine_tpu_torch.models import siglip
-    from meme_search_engine_tpu_torch.ops import _build, adc, attention, fused
+    from meme_search_engine_tpu_torch.ops import _build, adc, attention, fused, gather
     from meme_search_engine_tpu_torch.serving.clip_server import InferenceWorker
     from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
 
@@ -402,6 +679,69 @@ def main() -> int:
     del codes, luts, small_codes, small_luts, narrow_luts, timed_codes, bag_idx, table
     torch.cuda.empty_cache()
 
+    # the row gather: bit-equal to its plain version (tolerance 0)
+    def ids(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    gx = rn(GATHER_N, D)
+    gx8 = torch.randint(-127, 128, (GATHER_N, D), generator=gen, device=dev, dtype=torch.int8)
+    huge = torch.empty((1_000_000, D), device=dev, dtype=torch.bfloat16)  # 2.3 GB, past 2^31 B
+    huge[-1000:] = rn(1000, D)
+    hop_ids, prune_ids = ids(GATHER_HOP, 0, GATHER_N), ids(GATHER_PRUNE, 0, GATHER_N)
+    wild = ids((64, 50), -100_000, GATHER_N + 100_000)
+    wild[0, :2] = torch.tensor([-(2**31), 2**31 - 1], dtype=torch.int32)
+    gather_cases = {
+        "hop_bf16": (gx, hop_ids),
+        "prune_bf16": (gx, prune_ids),
+        "hop_int8": (gx8, hop_ids),
+        "64bit_offsets": (huge, ids((256, 100), 1_000_000 - 1000, 1_000_000)),
+        "d32_int8": (gx8[:, :32].contiguous(), ids((64, 50), 0, GATHER_N)),
+        "d72_int8": (gx8[:, :72].contiguous(), ids((64, 50), 0, GATHER_N)),
+        "ids_3x50": (gx, ids((3, 50), 0, GATHER_N)),
+        "ids_1x1": (gx, ids((1, 1), 0, GATHER_N)),
+        "out_of_range_clamped": (gx, wild),
+        "no_ids": (gx, ids((0, 128), 0, GATHER_N)),
+    }
+    gather_err = 0.0
+    for key, (gv, gi) in gather_cases.items():
+        gather.reset_launches()
+        got = gather.gather_rows(gv, gi)
+        torch.cuda.synchronize()
+        want = gather.gather_rows_plain(gv, gi)  # the plain version clamps too
+        ok = got.shape == want.shape and torch.equal(got, want)
+        if got.numel():
+            gather_err = max(gather_err, float((got.float() - want.float()).abs().max()))
+        launched = gather.launches["gather_rows"]
+        ok = ok and launched == (1 if gi.numel() else 0)
+        log(f"check gather_rows {key} {tuple(gv.shape)} {gv.dtype} ids {tuple(gi.shape)}: "
+            f"bit-equal {torch.equal(got, want)}, launches {launched} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"gather_rows disagrees with its plain version or launched {launched} times: {key}")
+    results["gather_rows"] = {"max_abs_err": gather_err, "tolerance": 0.0, "checked": list(gather_cases)}
+    del huge, wild, gather_cases, got, want
+    torch.cuda.empty_cache()
+    for gi, inner, suffix in ((hop_ids, 20, ""), (prune_ids, 4, "_prune")):
+        flat = gi.reshape(-1)
+        b, k = gi.shape
+        t_k = time_ms(lambda: gather.gather_rows(gx, gi), reps=10, inner=inner)
+        t_p = time_ms(lambda: gather.gather_rows_plain(gx, gi), reps=5, inner=inner)
+        t_l = time_ms(lambda: torch.index_select(gx, 0, flat).view(b, k, D), reps=10, inner=inner)
+        # each distinct row read once, the output written once, the ids read
+        row_bytes = D * gx.element_size()
+        distinct = int(torch.unique(flat).numel())
+        nbytes = (distinct + gi.numel()) * row_bytes + gi.numel() * 4
+        results["gather_rows"].update({
+            f"ms{suffix}": t_k, f"plain_ms{suffix}": t_p, f"library_ms{suffix}": t_l,
+            f"bound_ms{suffix}": nbytes / peak_bw * 1e3, f"bound_by{suffix}": "bytes",
+            f"distinct_rows{suffix}": distinct,
+        })
+        log(f"time gather_rows ids {tuple(gi.shape)} from {GATHER_N} x {D} bf16: kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, library (index_select) {t_l:.4f} ms, bound "
+            f"{nbytes / peak_bw * 1e3:.4f} ms (bytes: {distinct} distinct rows read, "
+            f"{gi.numel()} written), {gi.numel() * row_bytes / t_k / 1e6:.1f} GB/s written")
+    del gx, gx8, hop_ids, prune_ids, flat
+    torch.cuda.empty_cache()
+
     # -- 4. main path at full width -----------------------------------------
     from meme_search_engine_tpu_torch.serving.engine import pow2_buckets
 
@@ -423,12 +763,13 @@ def main() -> int:
     done: "queue.Queue" = queue.Queue()
 
     def launch_counts():
-        return {**fused.launches, **attention.launches, **adc.launches}
+        return {**fused.launches, **attention.launches, **adc.launches, **gather.launches}
 
     def reset_counts():
         fused.reset_launches()
         attention.reset_launches()
         adc.reset_launches()
+        gather.reset_launches()
 
     def serve(kind, requests):
         """Submit every request to the worker with the counts set to 0;
@@ -477,6 +818,7 @@ def main() -> int:
         "fat_vit_mha": cfg.depth,
         "fused_mha": 0,
         "adc_scores": 0,
+        "gather_rows": 0,
     }, n_buckets)
     for i, imgs in enumerate(requests):
         check_embeddings(f"image request {i}", outs[i], len(imgs))
@@ -495,6 +837,7 @@ def main() -> int:
         "ln_mlp_residual": 0,
         "fat_vit_mha": 0,
         "adc_scores": 0,
+        "gather_rows": 0,
     }, n_text_buckets)
     for i, texts in enumerate(text_requests):
         check_embeddings(f"text request {i}", text_outs[i], len(texts))
@@ -605,7 +948,11 @@ def main() -> int:
 
     stages: dict = {}
 
-    def timed(owner, name):
+    def timed(owner, name, into, calls=None):
+        """Wrap ``owner.name`` to add its synchronised host seconds to
+        ``into[name]`` and, with ``calls``, its calls to ``calls[name]``
+        (and a greedy search's hops to ``calls["hops"]``); returns the
+        function it replaced."""
         fn = getattr(owner, name)
 
         def wrapper(*a, **k):
@@ -613,13 +960,17 @@ def main() -> int:
             t0 = time.perf_counter()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+            into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+            if calls is not None:
+                calls[name] = calls.get(name, 0) + 1
+                if name == "_batched_greedy_search":
+                    calls["hops"] = calls.get("hops", 0) + out[2]
             return out
 
         setattr(owner, name, wrapper)
         return fn
 
-    wrapped = [(o, n, timed(o, n)) for o, n in (
+    wrapped = [(o, n, timed(o, n, stages)) for o, n in (
         (opq, "train_opq"), (opq.ProductQuantizer, "asymmetric_dot"),
         (rabitq, "train_rabitq"), (scalar, "train_scalar_quantizer"))]
     n_corpus = 1_000_000
@@ -640,7 +991,7 @@ def main() -> int:
         fail(f"quantizer corpus {tuple(run.x.shape)} on {run.x.device}")
     check_counts("quantizer", q_counts, {
         "adc_scores": len(run.q), "ln_matmul": 0, "matmul_residual": 0,
-        "ln_mlp_residual": 0, "fat_vit_mha": 0, "fused_mha": 0,
+        "ln_mlp_residual": 0, "fat_vit_mha": 0, "fused_mha": 0, "gather_rows": 0,
     }, 1)
     if len(run.q) != 64:
         fail(f"the tool scored {len(run.q)} queries, expected 64")
@@ -686,6 +1037,8 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
 
+    graph = shard_build(dev, timed, launch_counts, reset_counts, check_counts)
+
     # -- 5. result lines ----------------------------------------------------
     src = "meme_search_engine_tpu_torch/ops/csrc/"
     meta = {
@@ -717,6 +1070,11 @@ def main() -> int:
     kernels.append({"name": "adc_scores", "route": "cuda", "source": src + "adc.cu",
                     "replaces": "meme_search_engine_tpu/ops/adc.py:91",
                     "launches": q_counts["adc_scores"], **results["adc_scores"]})
+    # ms, plain_ms, library_ms and bound_ms at the hop shape; the *_prune
+    # keys at the prune shape; launches in the shard build
+    kernels.append({"name": "gather_rows", "route": "cuda", "source": src + "gather.cu",
+                    "replaces": "meme_search_engine_tpu/ops/gather.py:89",
+                    "launches": graph["launches"]["gather_rows"], **results["gather_rows"]})
     print(json.dumps({
         "kernels": kernels,
         "engine": {"batch": B_TIME, "ms": batch_ms, "images_per_s": B_TIME / batch_ms * 1e3,
@@ -731,6 +1089,7 @@ def main() -> int:
         "codes_equal_to_cpu": code_share, "codes_compared": int(card_codes.size),
         "adc_vs_cpu_max_abs_err": adc_vs_cpu,
     }}), flush=True)
+    print(json.dumps({"graph": graph}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

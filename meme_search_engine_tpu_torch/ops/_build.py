@@ -47,6 +47,7 @@ _SIGNATURES = {
     ),
     ("mha", "mse_mha"): [c_ptr] * 5 + [c_int] * 5 + [ctypes.c_float] + [c_i64] * 9 + [c_ptr],
     ("adc", "mse_adc"): [c_ptr] * 3 + [c_i64] + [c_int] * 3 + [c_ptr],
+    ("gather", "mse_gather_rows"): [c_ptr] * 3 + [c_i64] * 3 + [c_ptr],
 }
 
 _lock = threading.Lock()

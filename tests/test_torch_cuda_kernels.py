@@ -5,7 +5,8 @@ are chosen to hit the kernels' edges (rows and columns that do not fill a
 tile, ragged key tiles, narrow heads, strided views); chip_smoke.py
 checks the SO400M shapes. Tolerances: 0.05 for the GEMMs
 (tests/test_fused.py), atol 2e-2 for attention (tests/test_attention.py:98),
-rtol = atol = 1e-4 for ADC (tests/test_quantizers.py:175). This file
+rtol = atol = 1e-4 for ADC (tests/test_quantizers.py:175); the row gather
+is exact, so it is compared bit for bit. This file
 imports neither JAX nor the JAX package, so on the GPU machine it runs
 without the repository's conftest:
 
@@ -15,7 +16,7 @@ without the repository's conftest:
 import pytest
 import torch
 
-from meme_search_engine_tpu_torch.ops import adc, attention, fused
+from meme_search_engine_tpu_torch.ops import adc, attention, fused, gather
 
 pytestmark = pytest.mark.cuda
 
@@ -347,3 +348,90 @@ def test_quantizer_tool_on_the_card(capsys):
     assert adc.launches["adc_scores"] == len(run.q) == 64
     assert run.codes.device.type == "cuda" and run.x.device.type == "cuda"
     assert set(run.results) == {"opq_64x256", "rabitq_512", "scalar_u8", "faiss"}
+
+
+@pytest.mark.parametrize("d", [16, 32, 72, 1152])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_gather_rows_kernel(gen, d, dtype):
+    """Bit for bit against indexing; int8 rows of 16, 32 and 72 bytes take
+    the 16-, 16- and 8-byte word routes, bf16 rows of 144 bytes 16."""
+    n = 3001
+    x = torch.randn((n, d), generator=gen, device="cuda").mul(50).to(dtype)
+    for shape in ((1024, 128), (3, 50), (1, 1), (7, 0)):
+        idx = torch.randint(0, n, shape, generator=gen, device="cuda", dtype=torch.int32)
+        gather.reset_launches()
+        got = gather.gather_rows(x, idx)
+        torch.cuda.synchronize()
+        assert gather.launches["gather_rows"] == (1 if idx.numel() else 0)
+        assert got.shape == (*shape, d) and got.dtype == dtype
+        assert torch.equal(got, x[idx.long()])
+
+
+def test_gather_rows_kernel_narrow_words_and_clamped_ids(gen):
+    """Rows of odd byte counts (1- and 2-byte words), a corpus whose base
+    is not 16-byte aligned, and ids past both ends, which clamp."""
+    for d, dtype in ((7, torch.int8), (9, torch.bfloat16), (33, torch.int8)):
+        x = torch.randn((500, d), generator=gen, device="cuda").mul(50).to(dtype)
+        idx = torch.randint(-50, 550, (64, 9), generator=gen, device="cuda", dtype=torch.int32)
+        idx[0, :3] = torch.tensor([-(2**31), 2**31 - 1, 499], dtype=torch.int32)
+        got = gather.gather_rows(x, idx)
+        assert torch.equal(got, x[idx.long().clamp(0, 499)])
+        assert torch.equal(got, gather.gather_rows_plain(x, idx))
+    flat = torch.randint(-127, 128, (1 + 100 * 64,), generator=gen, device="cuda", dtype=torch.int8)
+    x = flat[1:].view(100, 64)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    idx = torch.randint(0, 100, (5, 20), generator=gen, device="cuda", dtype=torch.int32)
+    assert torch.equal(gather.gather_rows(x, idx), x[idx.long()])
+    torch.cuda.synchronize()
+
+
+def test_gather_rows_kernel_past_2_31_bytes(gen):
+    """A 1e6 x 1152 bf16 corpus is 2.3 GB: rows near its end need 64-bit
+    offsets."""
+    n, d = 1_000_000, 1152
+    x = torch.empty((n, d), device="cuda", dtype=torch.bfloat16)
+    x[-1000:] = torch.randn((1000, d), generator=gen, device="cuda").to(torch.bfloat16)
+    idx = torch.randint(n - 1000, n, (64, 100), generator=gen, device="cuda", dtype=torch.int32)
+    assert torch.equal(gather.gather_rows(x, idx), x[idx.long()])
+    del x
+    torch.cuda.empty_cache()
+
+
+def test_gather_rows_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    x = torch.randn((100, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    idx = torch.zeros((2, 3), device="cuda", dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        gather.gather_rows(x, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_rows(x.t(), idx)
+    with pytest.raises(ValueError):
+        gather.gather_rows(x, idx.cpu())
+    with pytest.raises(ValueError, match=r"\(B, K\)"):
+        gather.gather_rows(x, idx[0])
+
+
+def test_vamana_build_on_the_card_matches_the_cpu_port():
+    """tests/test_vamana.py's fixture built on the card: the build's own
+    device-mirror check passes, every hop and prune goes through the
+    kernel, and recall@10 is within 0.03 of the CPU port's build."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from meme_search_engine_tpu_torch.index import vamana
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2000, 32)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    cfg = vamana.VamanaConfig(r=16, l=48, maxc=96, alpha=1.0, batch_size=256)
+    q = x[:200]
+    truth = np.argsort(-(q @ x.T), axis=1)[:, :10]
+    recall = {}
+    for device in ("cuda", "cpu"):
+        gather.reset_launches()
+        graph = vamana.build_graph(x, cfg, seed=0, device=device)
+        assert (gather.launches["gather_rows"] > 0) == (device == "cuda")
+        ids = vamana.search(x, graph, q, 10, cfg, device=device)[1]
+        recall[device] = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, truth)])
+    assert recall["cuda"] > 0.85 and abs(recall["cuda"] - recall["cpu"]) <= 0.03, recall

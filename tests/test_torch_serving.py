@@ -208,9 +208,10 @@ def test_inference_worker_reports_errors_and_stops(tiny_engine):
 def test_port_imports_no_jax_and_no_optional_packages():
     """In a fresh process (tests/conftest.py imports jax here), the port's
     modules and chip_smoke.py pull in neither JAX nor the JAX package, and
-    the engine, the inference worker, the tokenizer and the checkpoint
-    reader need none of msgpack, aiohttp, PIL, prometheus_client,
-    tokenizers, safetensors or triton."""
+    the engine, the inference worker, the tokenizer, the checkpoint
+    reader and the shard build (its file formats included) need none of
+    msgpack, aiohttp, PIL, prometheus_client, tokenizers, safetensors or
+    triton."""
     code = (
         "import sys\n"
         "import chip_smoke\n"
@@ -220,6 +221,11 @@ def test_port_imports_no_jax_and_no_optional_packages():
         "import meme_search_engine_tpu_torch.models.safetensors_io\n"
         "import meme_search_engine_tpu_torch.ops._build\n"
         "import meme_search_engine_tpu_torch.serving.tokenizer\n"
+        "import meme_search_engine_tpu_torch.index.kmeans\n"
+        "import meme_search_engine_tpu_torch.index.vamana\n"
+        "import meme_search_engine_tpu_torch.ops.gather\n"
+        "import meme_search_engine_tpu_torch.ops.mips\n"
+        "import meme_search_engine_tpu_torch.pipeline.build_shard\n"
         "lazy = [m for m in ('msgpack', 'aiohttp', 'PIL', 'prometheus_client', 'tokenizers',\n"
         "                    'safetensors', 'triton') if m in sys.modules]\n"
         "assert not lazy, lazy\n"
