@@ -29,7 +29,12 @@ Phases, in order; any failure exits non-zero with no result line:
    1e6 x 1152 bf16 corpus (past 2^31 bytes), at D = 32 and 72 in int8, at
    (3, 50) and (1, 1) ids, with ids out of range (clamped) and with no ids
    (no launch); then timed at the hop and prune shapes beside its plain
-   version, ``torch.index_select`` and its bound.
+   version, ``torch.index_select`` and its bound. The fused attention +
+   o-projection kernel (``fat_vit_mha_packed_proj``, which no main path
+   runs) on the image tower's layer shapes and activations at B=2 and
+   B=128, against its plain version and against kernels 7 then 2 on the
+   card (valid rows, rtol = atol = 0.05), and at the tiny geometries;
+   then timed beside its plain version, 7 + 2 and SDPA + addmm.
 4. Main path at full SO400M width (27 layers per tower, random weights
    from a seed, the hash tokenizer): one EmbeddingEngine holds both
    towers behind the service's InferenceWorker.
@@ -44,6 +49,16 @@ Phases, in order; any failure exits non-zero with no result line:
    All outputs must be finite and unit-norm, and three embeddings of
    each tower must agree (cos >= 0.999) with the same weights run on the
    CPU through the plain versions.
+   - The small-scale service on the same engine (``service``): 1e5 rows
+     in a temporary SQLite state (512 images embedded by the engine, the
+     rest unit-norm fp16 rows from a seed), ``build_index`` + swap, 64
+     concurrent k = 1000 searches through the ``SearchBatcher`` in fewer
+     device calls, each equal to the CPU's exact top-k up to near ties
+     (1e-5); fused text queries (weights 1, 0.5, -1; the fused vector
+     equal to the weighted sum of its terms); an ingested image found
+     first by its stored embedding, with its dims; then the reload, the
+     search at B = 1 and 16 beside its byte bound, and a single-text
+     query end to end, timed. The fused kernel launches on no main path.
    - Quantizers, at the deployment size of docs/scale1m_report.json
      (N = 1e6, d = 1152): the port's ``tools/quantizer_bench`` trains OPQ
      64x256 on a 50k sample with 64 queries, encodes the corpus and
@@ -70,8 +85,9 @@ Phases, in order; any failure exits non-zero with no result line:
      ``gather_rows`` must launch once per hop, prune and re-prune chunk,
      and no other kernel; no earlier path may launch it.
 5. One JSON line with every kernel's numbers, one with the quantizer
-   path's, one with the graph build's, then the card's name and power
-   limit, then ``{"ok": true, "device": {...}}`` as the last line.
+   path's, one with the graph build's, one with the service's, then the
+   card's name and power limit, then ``{"ok": true, "device": {...}}`` as
+   the last line.
 """
 
 from __future__ import annotations
@@ -103,6 +119,10 @@ NEAR_TIE = 1e-4  # a code may differ from the CPU's only within this of its best
 # the row gather at the shard build's shapes: a corpus of about the shard's
 # node count, the hop's (batch, expand x R) ids and the prune's (batch, maxc)
 GATHER_N, GATHER_HOP, GATHER_PRUNE = 48_643, (1024, 128), (1024, 750)
+# the small-scale service: a personal library of about 1e5 items, some of
+# them images embedded by the engine; a search answer may differ from the
+# CPU's exact top-k only by near ties within this
+SERVICE_N, SERVICE_IMAGES, NEAR_TIE_SEARCH = 100_000, 512, 1e-5
 
 
 def log(*a):
@@ -260,7 +280,7 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
     expected = calls["hops"] + calls["_batched_robust_prune"] + calls["_score_sort_prune"]
     check_counts("graph", launches, {
         "gather_rows": expected, "ln_matmul": 0, "matmul_residual": 0, "ln_mlp_residual": 0,
-        "fat_vit_mha": 0, "fused_mha": 0, "adc_scores": 0,
+        "fat_vit_mha": 0, "fused_mha": 0, "adc_scores": 0, "fat_vit_mha_packed_proj": 0,
     }, 1)
 
     # quality, by ann_bench's protocol over 512 base rows
@@ -406,6 +426,256 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
         "launches": launches, "self_recall@1": self_recall, "recall@10": recall10, "qps": qps,
         "search_hops": steps, "profiled_round": profiled, "card_vs_cpu_64_nodes": agreement,
         "peak_gib": peak, "medioid": med, "phase_s": phase_s,
+    }
+
+
+def service(engine, dev, reset_counts, launch_counts, check_counts,
+            n: int = SERVICE_N, n_images: int = SERVICE_IMAGES) -> dict:
+    """The small-scale deployment, a personal meme library of about 1e5
+    items (SURVEY §1), on the engine of phase 4 through the service's
+    ``InProcessEmbedder``: ``n_images`` images embedded by the engine and
+    the rest unit-norm fp16 rows from a seed, written to the SQLite state
+    as ``IngestService.ingest`` writes them; ``build_index`` and the
+    handle's swap (the second half of ``reload()``: its folder scan would
+    delete these rows); concurrent raw queries through the
+    ``SearchBatcher`` against the CPU's exact top-k; fused text queries;
+    an ingested image found by its stored embedding; then the times.
+    Returns the ``service`` JSON object."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from meme_search_engine_tpu_torch.ingest.db import IngestDB
+    from meme_search_engine_tpu_torch.ingest.filename import Actual, encode_filename
+    from meme_search_engine_tpu_torch.ingest.pipeline import IngestService
+    from meme_search_engine_tpu_torch.ops import mips
+    from meme_search_engine_tpu_torch.serving.client import InProcessEmbedder
+    from meme_search_engine_tpu_torch.serving.engine import pow2_buckets
+    from meme_search_engine_tpu_torch.serving.query_server import (
+        DEFAULT_K, SearchBatcher, format_results, fuse_query_terms)
+    from meme_search_engine_tpu_torch.serving.wire import QueryRequest, QueryTerm
+
+    cfg = engine.cfg
+    d, r = cfg.d_emb, cfg.image_size
+    t_phase = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    with tempfile.TemporaryDirectory() as tmp:
+        files = os.path.join(tmp, "memes")
+        os.makedirs(files)
+        config = {"files": files, "db_path": os.path.join(tmp, "state.db"), "device": str(dev)}
+        embedder = InProcessEmbedder(engine)
+        svc = IngestService(config, IngestDB(config["db_path"]), embedder)
+        db, batch = svc.db, embedder.config.batch
+        mtime_us = int(time.time() * 1e6)
+
+        def write(name, emb, meta):
+            fn = encode_filename(Actual(name))
+            db.stage_file(fn, mtime_us, want_ocr=False, want_thumbs=False)
+            db.write_embedding(fn, emb)
+            db.write_metadata(fn, meta)
+
+        # the images, in the embedder's batches, with its fp16 round trip
+        rng = np.random.default_rng(5)
+        reset_counts()
+        t0 = time.perf_counter()
+        img_embs = []
+        for s in range(0, n_images, batch):
+            imgs = rng.integers(0, 256, (min(batch, n_images - s), r, r, 3), dtype=np.uint8)
+            embs = engine.embed_image_arrays(imgs).astype(np.float16)
+            for j, e in enumerate(embs):
+                write(f"img/{s + j}.png", e, {"dimension": [r, r]})
+            db.commit()
+            img_embs.append(embs)
+        t_embed = time.perf_counter() - t0
+        img_embs = np.concatenate(img_embs).astype(np.float32)
+        n_img_buckets = sum(len(pow2_buckets(min(batch, n_images - s), engine.max_batch))
+                            for s in range(0, n_images, batch))
+        check_counts("service (images)", launch_counts(), {
+            "ln_matmul": cfg.depth + 1, "matmul_residual": cfg.depth, "ln_mlp_residual": cfg.depth,
+            "fat_vit_mha": cfg.depth, "fused_mha": 0, "fat_vit_mha_packed_proj": 0,
+            "adc_scores": 0, "gather_rows": 0,
+        }, n_img_buckets)
+        srng = np.random.default_rng(6)
+        syn = srng.standard_normal((n - n_images, d), dtype=np.float32)
+        syn = (syn / np.linalg.norm(syn, axis=1, keepdims=True)).astype(np.float16)
+        t0 = time.perf_counter()
+        for i, e in enumerate(syn):
+            write(f"syn/{i}.jpg", e, {})
+        db.commit()
+        t_fill = time.perf_counter() - t0
+        log(f"service: {n_images} images embedded and written in {t_embed:.1f} s, "
+            f"{len(syn)} more rows written in {t_fill:.1f} s")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = svc.build_index()
+        svc.handle.swap(index)
+        torch.cuda.synchronize()
+        t_reload = time.perf_counter() - t0
+        if len(index) != n or index.vectors.device.type != dev.type or index.vectors.dtype != torch.float16:
+            fail(f"index of {len(index)} rows, {index.vectors.dtype} on {index.vectors.device}")
+        log(f"service: build_index + swap of {n} rows in {t_reload:.2f} s")
+
+        # 64 concurrent raw queries at k = DEFAULT_K in fewer device calls,
+        # against the CPU's exact top-k over the same fp16 rows
+        reset_counts()
+        batcher = SearchBatcher(svc.handle)
+        qs = srng.standard_normal((64, d), dtype=np.float32)
+        qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+        calls = []
+        real_search = index.search
+
+        def counting_search(queries, k):
+            calls.append((len(queries), k))
+            return real_search(queries, k)
+
+        index.search = counting_search
+
+        async def concurrent():
+            return await asyncio.gather(*[batcher.search(q, DEFAULT_K) for q in qs])
+
+        hits = run(concurrent())
+        del index.search
+        corpus = index.vectors.cpu()
+        cpu_s, cpu_i = (t.numpy() for t in mips.mips_topk(corpus, torch.from_numpy(qs), DEFAULT_K))
+        full = mips.exact_scores(corpus, torch.from_numpy(qs)).numpy()
+        gap, moved = 0.0, 0
+        for row, (s, ids, snap) in enumerate(hits):
+            if snap is not index or s.shape != (DEFAULT_K,) or ids.shape != (DEFAULT_K,):
+                fail(f"query {row}: answer of shape {s.shape} from another index")
+            gap = max(gap, float(np.abs(s - cpu_s[row]).max()))
+            diff = np.flatnonzero(ids != cpu_i[row])
+            moved += len(diff)
+            # an id may differ only where the card put a near tie: its exact
+            # score within NEAR_TIE_SEARCH of the CPU's score at that rank
+            if len(diff) and np.abs(full[row, ids[diff]] - cpu_s[row, diff]).max() > NEAR_TIE_SEARCH:
+                fail(f"query {row}: ids differ from the CPU's top-{DEFAULT_K} beyond near ties")
+        log(f"service: 64 concurrent k={DEFAULT_K} queries in {len(calls)} device calls "
+            f"{calls}; largest score gap to the CPU {gap:.2e}, {moved} ids moved within near ties")
+        if not len(calls) < 64 or gap > NEAR_TIE_SEARCH:
+            fail(f"search batching or scores: {len(calls)} calls, score gap {gap}")
+
+        # fused text queries: weights 1, 0.5 and -1, text and raw terms
+        raw = syn[7].astype(np.float32)
+        texts = ["a cat reacting to a gpu", "funny dog"]
+        req = QueryRequest(terms=[QueryTerm(text=texts[0]), QueryTerm(text=texts[1], weight=0.5),
+                                  QueryTerm(embedding=raw.tolist(), weight=-1.0)], k=20)
+        qvec = run(fuse_query_terms(req, embedder, d, svc.predefined_embeddings))
+        embs = run(embedder.embed_texts(texts))  # the terms as the fusion embeds them
+        fuse_err = float(np.abs(qvec - (embs[0] + 0.5 * embs[1] - raw)).max())
+        s, ids, snap = run(batcher.search(qvec, min(req.k, len(index))))
+        res = format_results(snap, s, ids, req)
+        scores = [m[0] for m in res.matches]
+        log(f"service: fused text query: |fused - weighted sum| {fuse_err:.2e}; top {len(scores)} "
+            f"from {res.matches[0][1]} at {scores[0]:.4f} to {scores[-1]:.4f}")
+        if fuse_err > NEAR_TIE_SEARCH or len(res.matches) != 20 or scores != sorted(scores, reverse=True):
+            fail(f"fused query: error {fuse_err}, {len(res.matches)} matches")
+
+        # an ingested image found by its stored embedding: the one whose
+        # nearest other image lies farthest
+        sims = img_embs @ img_embs.T
+        margins = np.diag(sims) - np.where(np.eye(n_images, dtype=bool), -np.inf, sims).max(1)
+        pick = int(np.argmax(margins))
+        req = QueryRequest(terms=[QueryTerm(embedding=img_embs[pick].tolist())], k=10)
+        qvec = run(fuse_query_terms(req, embedder, d, svc.predefined_embeddings))
+        s, ids, snap = run(batcher.search(qvec, min(req.k, len(index))))
+        top = format_results(snap, s, ids, req).matches[0]
+        log(f"service: image {pick} by its stored embedding (margin to its nearest other image "
+            f"{margins[pick]:.3e}, smallest margin {margins.min():.3e}): first hit {top[1]} at "
+            f"{top[0]:.4f}, dims {top[4]}")
+        if top[1] != f"img/{pick}.png" or tuple(top[4]) != (r, r):
+            fail(f"self-retrieval of img/{pick}.png gave {top}")
+
+        # times: the search alone (host clock around FlatIndex.search, which
+        # ends in the copy to the host; and the card's time of its mips_topk),
+        # and one single-text query end to end
+        qdev = torch.from_numpy(qs).to(dev)
+        search_ms, mips_ms = {}, {}
+        for b in (1, 16):
+            index.search(qs[:b], DEFAULT_K)
+            ts = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                index.search(qs[:b], DEFAULT_K)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            search_ms[b] = float(np.median(ts))
+            mips_ms[b] = time_ms(lambda: mips.mips_topk(index.vectors, qdev[:b], DEFAULT_K), reps=20)
+        bound_ms = n * d * 2 / PEAK_BW * 1e3
+
+        async def one_query(parts):
+            """One single-text query as the POST handler runs it; appends
+            the host ms of its fusion (the text tower at B = 1), its
+            batched search and its formatting to ``parts``."""
+            t0 = time.perf_counter()
+            req = QueryRequest(terms=[QueryTerm(text="a frog meme")])
+            qvec = await fuse_query_terms(req, embedder, d, svc.predefined_embeddings)
+            t1 = time.perf_counter()
+            s, ids, snap = await batcher.search(qvec, min(req.k or DEFAULT_K, len(index)))
+            t2 = time.perf_counter()
+            res = format_results(snap, s, ids, req)
+            parts.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3))
+            return res
+
+        run(one_query([]))
+        ts, parts = [], []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            res = run(one_query(parts))
+            ts.append((time.perf_counter() - t0) * 1e3)
+        query_ms = float(np.median(ts))
+        query_parts = dict(zip(("fuse_ms", "search_ms", "format_ms"), np.median(parts, axis=0).tolist()))
+        if len(res.matches) != DEFAULT_K:
+            fail(f"a single-text query gave {len(res.matches)} matches")
+
+        # one B = 1 search under the profiler: the card's time by kernel
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            index.search(qs[:1], DEFAULT_K)
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name: dict = {}
+        for e in on_card:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        profiled = {"wall_ms": prof_wall, "device_ops": len(on_card),
+                    "device_ms": sum(by_name.values()) if on_card else None,
+                    "top_device_ms": {k[:100]: v for k, v in top}}
+        log(f"service: one B=1 search profiled: {len(on_card)} device ops, the card busy "
+            + (f"{profiled['device_ms']:.3f} ms of {prof_wall:.3f} ms (profiled)" if on_card
+               else "not measured (no device events)"))
+        for k, v in top:
+            log(f"  {v:.4f} ms: {k[:100]}")
+        text_buckets = 2 + 21  # the fused query, its terms again, the timed queries
+        check_counts("service (queries)", launch_counts(), {
+            "fused_mha": cfg.text_depth, "ln_matmul": 0, "matmul_residual": 0,
+            "ln_mlp_residual": 0, "fat_vit_mha": 0, "fat_vit_mha_packed_proj": 0,
+            "adc_scores": 0, "gather_rows": 0,
+        }, text_buckets)
+        log(f"service: FlatIndex.search at k={DEFAULT_K}: B=1 {search_ms[1]:.3f} ms, B=16 "
+            f"{search_ms[16]:.3f} ms (host clock, median of 20); its mips_topk on the card "
+            f"{mips_ms[1]:.3f} and {mips_ms[16]:.3f} ms against a bound of {bound_ms:.4f} ms "
+            f"(bytes); one single-text query end to end {query_ms:.2f} ms (median of 20, "
+            f"from {min(ts):.2f} to {max(ts):.2f}; medians of its parts: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in query_parts.items()) + ")")
+        db.conn.close()
+    loop.close()
+    phase_s = time.perf_counter() - t_phase
+    log(f"service: the phase took {phase_s:.1f} s")
+    return {
+        "n": n, "d": d, "images": n_images, "embed_s": t_embed, "fill_s": t_fill,
+        "reload_s": t_reload, "search_calls_for_64": len(calls), "search_batches": calls,
+        "max_score_gap": gap, "ids_moved_within_near_ties": moved, "fuse_err": fuse_err,
+        "self_retrieval_margin": float(margins[pick]),
+        "search_ms": {"b1": search_ms[1], "b16": search_ms[16]},
+        "mips_device_ms": {"b1": mips_ms[1], "b16": mips_ms[16]},
+        "bound_ms": bound_ms, "bound_by": "bytes", "k": DEFAULT_K,
+        "single_text_query_ms": query_ms, "single_text_query_parts": query_parts,
+        "search_b1_profiled": profiled, "phase_s": phase_s,
     }
 
 
@@ -632,6 +902,87 @@ def main() -> int:
     del big, kern, plain, lib  # the closures hold the B=128 inputs
     torch.cuda.empty_cache()
 
+    # kernel 8, the attention fused with the o-projection and the residual:
+    # no main path runs it (the towers run kernels 7 then 2, as the JAX
+    # package's do), so it is held, on the image tower's layer shapes and
+    # activations, against its plain version and against 7 + 2 on the
+    # card, valid rows, rtol = atol = CHECK_TOL; then timed against both
+    wo, bo = attn_p["o"]["w"], attn_p["o"]["b"]
+    HD = H * DH
+
+    def check_proj(what, b, got, want):
+        err, ok = compare(got, want, CHECK_TOL, S)
+        log(f"check {what} B={b}: max_abs_err {err:.3e} on the valid rows (tol {CHECK_TOL}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{what} disagrees at B={b}: max_abs_err {err}")
+        return err
+
+    proj = {"tolerance": CHECK_TOL}
+    for b, suffix in ((B_CHECK, ""), (B_TIME, "_b128")):
+        x, qkvf, _ = inputs(b)
+        kern = lambda: attention.fat_vit_mha_packed_proj(qkvf, wo, bo, x, H, DH)  # noqa: E731
+        plain = lambda: attention.fat_vit_mha_packed_proj_plain(qkvf, wo, bo, x, H, DH)  # noqa: E731
+        composed = lambda: fused.matmul_residual(attention.fat_vit_mha_packed(qkvf, H, DH), wo, bo, x)  # noqa: E731
+        got = kern()
+        proj[f"max_abs_err{suffix}"] = check_proj("fat_vit_mha_packed_proj", b, got, plain())
+        proj[f"max_abs_err_composed{suffix}"] = check_proj(
+            "fat_vit_mha_packed_proj against 7 + 2", b, got, composed())
+        del got
+    # the library's yardstick, two calls (no one PyTorch call computes this
+    # function): SDPA with the key mask over (B, SP, H, DH) q/k/v viewed as
+    # (B, H, SP, DH), whose output reshapes to rows in place, then addmm
+    # with x as the residual (bo left out, as matmul_residual's yardstick)
+    m = B_TIME * SP
+    qkv4 = qkvf.view(B_TIME, SP, 3, H, C)[..., :DH]
+    qs, ks, vs = (qkv4[:, :, i].contiguous() for i in range(3))
+    key_ok = (torch.arange(SP, device=dev) < S)[None, None, None, :]
+    x2 = x.reshape(m, D)
+
+    def library():
+        o = F.scaled_dot_product_attention(qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
+                                           attn_mask=key_ok)
+        return torch.addmm(x2, o.transpose(1, 2).reshape(m, HD), wo)
+
+    t_k = time_ms(kern, reps=10)
+    t_p = time_ms(plain, reps=3)
+    t_c = time_ms(composed, reps=10)
+    t_l = time_ms(library, reps=10)
+    flops = 4.0 * B_TIME * H * SP * SP * C + 2.0 * m * HD * D
+    nbytes = 2 * (m * 3 * HC + 2 * m * D + HD * D + D)
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    proj.update(ms=t_k, plain_ms=t_p, composed_ms=t_c, library_ms=t_l,
+                library_calls="F.scaled_dot_product_attention + torch.addmm, two calls",
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                tflops=flops / t_k / 1e9)
+    log(f"time fat_vit_mha_packed_proj B={B_TIME}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+        f"7 + 2 composed {t_c:.3f} ms, library (SDPA + addmm, two calls) {t_l:.3f} ms, bound "
+        f"{max(t_ops, t_bytes):.3f} ms ({proj['bound_by']}: operations {t_ops:.3f}, bytes "
+        f"{t_bytes:.3f}), {flops / t_k / 1e9:.1f} TFLOP/s")
+    del x, qkvf, qkv4, qs, ks, vs, x2, kern, plain, composed
+    # the tiny geometries: tiny_test_config (C 24 -> 32, H*DH = DM = 64) and
+    # tiny_fat_test_config (C 8 -> 16, H*DH = DM = 112), 4 valid rows of 16
+    for tag, (th, td) in {"tiny": (4, 16), "tiny_fat": (16, 7)}.items():
+        tc, tsp, tvalid = attention.fat_width(td), 16, 4
+        f = torch.randn((B_CHECK, tsp, 3, th, tc), generator=gen, device=dev)
+        f[..., td:] = 0
+        f[:, :, 0, :, :td] *= td**-0.5
+        f[:, :, 0, :, td] = 1
+        f[:, tvalid:, 1] = 0
+        f[:, tvalid:, 1, :, td] = -1e30
+        f[:, :, 2, :, td] = 1
+        tq = f.reshape(B_CHECK, tsp, 3 * th * tc).to(torch.bfloat16)
+        tw, tb, tr = rn(th * td, th * td, std=(th * td) ** -0.5), rn(th * td, std=0.02), rn(B_CHECK, tsp, th * td)
+        err, ok = compare(attention.fat_vit_mha_packed_proj(tq, tw, tb, tr, th, td),
+                          attention.fat_vit_mha_packed_proj_plain(tq, tw, tb, tr, th, td), CHECK_TOL, tvalid)
+        log(f"check fat_vit_mha_packed_proj [{tag}] B={B_CHECK}: max_abs_err {err:.3e} on the valid "
+            f"rows (tol {CHECK_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"fat_vit_mha_packed_proj disagrees with its plain version [{tag}]: {err}")
+        proj[f"max_abs_err_{tag}"] = err
+    results["fat_vit_mha_packed_proj"] = proj
+    torch.cuda.empty_cache()
+
     # the ADC kernel: N = 1,000,003 codes (a ragged last tile), LUTs of 256
     codes = torch.randint(0, 256, (ADC_N, ADC_M), generator=gen, device=dev, dtype=torch.uint8)
     luts = torch.randn((64, ADC_M, 256), generator=gen, device=dev)
@@ -817,6 +1168,7 @@ def main() -> int:
         "ln_mlp_residual": cfg.depth,
         "fat_vit_mha": cfg.depth,
         "fused_mha": 0,
+        "fat_vit_mha_packed_proj": 0,
         "adc_scores": 0,
         "gather_rows": 0,
     }, n_buckets)
@@ -836,6 +1188,7 @@ def main() -> int:
         "matmul_residual": 0,
         "ln_mlp_residual": 0,
         "fat_vit_mha": 0,
+        "fat_vit_mha_packed_proj": 0,
         "adc_scores": 0,
         "gather_rows": 0,
     }, n_text_buckets)
@@ -937,6 +1290,9 @@ def main() -> int:
         f"{k} {v:.2f}" for k, v in split.items())
         + f"; sum {split_total:.1f} ms of {text_ms / text_buckets:.1f} ms per bucket")
     log(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # the small-scale service on the same engine
+    svc = service(engine, dev, reset_counts, launch_counts, check_counts)
     del engine, worker, batch_out, text_out
     torch.cuda.empty_cache()
 
@@ -992,6 +1348,7 @@ def main() -> int:
     check_counts("quantizer", q_counts, {
         "adc_scores": len(run.q), "ln_matmul": 0, "matmul_residual": 0,
         "ln_mlp_residual": 0, "fat_vit_mha": 0, "fused_mha": 0, "gather_rows": 0,
+        "fat_vit_mha_packed_proj": 0,
     }, 1)
     if len(run.q) != 64:
         fail(f"the tool scored {len(run.q)} queries, expected 64")
@@ -1067,6 +1424,12 @@ def main() -> int:
         kernels.append(e)
     # ms, plain_ms, library_ms and bound_ms at B = 1 (the tool's call); the
     # *_b64 keys at B = 64, both at N = 1e6, M = 64, C = 256
+    # launches on the image path, the one the kernel would join; every main
+    # path was checked to launch it 0 times
+    kernels.append({"name": "fat_vit_mha_packed_proj", "route": "cuda",
+                    "source": src + "fat_attention_proj.cu",
+                    "replaces": "meme_search_engine_tpu/ops/attention.py:453",
+                    "launches": counts["fat_vit_mha_packed_proj"], **results["fat_vit_mha_packed_proj"]})
     kernels.append({"name": "adc_scores", "route": "cuda", "source": src + "adc.cu",
                     "replaces": "meme_search_engine_tpu/ops/adc.py:91",
                     "launches": q_counts["adc_scores"], **results["adc_scores"]})
@@ -1090,6 +1453,7 @@ def main() -> int:
         "adc_vs_cpu_max_abs_err": adc_vs_cpu,
     }}), flush=True)
     print(json.dumps({"graph": graph}), flush=True)
+    print(json.dumps({"service": svc}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -113,12 +113,52 @@ def _integer_dot(x, y, q_offsets, q_scales):
     return torch.sum(x1 * y1, dim=-1, dtype=torch.int32)
 
 
-def train_scalar_quantizer(data: np.ndarray) -> ScalarQuantizer:
-    """Fit per-dim ranges on a dataset sample (scalar_quantize.py:13-83)."""
-    data = np.asarray(data, np.float32)
-    n_dims = data.shape[1]
-    smin = np.quantile(data, CUTOFF, axis=0)
-    smax = np.quantile(data, 1 - CUTOFF, axis=0)
+def column_quantile(x: torch.Tensor, q: float, chunk: int = 64) -> np.ndarray:
+    """``np.quantile(x, q, axis=0)`` for an fp32 (N, D) tensor, bit for bit.
+
+    The two order statistics that numpy's "linear" method reads are found
+    per column on the tensor's device (``torch.kthvalue`` over ``chunk``
+    columns at a time, so the device holds one (chunk, N) copy); numpy's
+    own interpolation then runs on the host, in numpy's dtypes: q takes
+    the data's dtype, the virtual index is ``(n - 1) * q`` and ``_lerp``
+    switches form at gamma 0.5 (numpy/lib/_function_base_impl.py).
+    """
+    n, d = x.shape
+    qa = np.asanyarray(q, dtype=np.float32)
+    virtual = np.asanyarray((n - 1) * qa)
+    if virtual >= n - 1:
+        lo = hi = n - 1
+    elif virtual < 0:
+        lo = hi = 0
+    else:
+        lo = int(np.floor(virtual))
+        hi = lo + 1
+    gamma = np.asanyarray(virtual - np.floor(virtual), dtype=virtual.dtype)
+    a = np.empty(d, np.float32)
+    b = np.empty(d, np.float32)
+    for c0 in range(0, d, chunk):
+        cols = x[:, c0 : c0 + chunk].T.contiguous()
+        a[c0 : c0 + chunk] = cols.kthvalue(lo + 1, dim=1).values.cpu().numpy()
+        b[c0 : c0 + chunk] = cols.kthvalue(hi + 1, dim=1).values.cpu().numpy()
+        del cols
+    diff_b_a = np.subtract(b, a)
+    lerp = np.asanyarray(np.add(a, diff_b_a * gamma))
+    np.subtract(b, diff_b_a * (1 - gamma), out=lerp, where=gamma >= 0.5,
+                casting="unsafe", dtype=type(lerp.dtype))
+    return lerp
+
+
+def train_scalar_quantizer(data) -> ScalarQuantizer:
+    """Fit per-dim ranges on a dataset sample (scalar_quantize.py:13-83).
+
+    ``data`` is numpy or a tensor; the quantiles' order statistics are
+    found where it lies (:func:`column_quantile`), the rest is the JAX
+    package's host numpy.
+    """
+    x = _tensor(data, "cpu", torch.float32)
+    n_dims = x.shape[1]
+    smin = column_quantile(x, CUTOFF)
+    smax = column_quantile(x, 1 - CUTOFF)
     ranges = np.maximum(smax - smin, 1e-12)
 
     step = ranges / 255.0

@@ -24,7 +24,11 @@ head_dim features, then one constant column, then zero padding.
 The plain versions compute exactly that with full score matrices in
 fp32; the wrappers launch ``csrc/fat_attention.cu`` on CUDA tensors, a
 streaming (online-softmax) kernel, and take the plain version only for
-CPU tensors.
+CPU tensors. :func:`fat_vit_mha_packed_proj` adds the o-projection and
+the residual (``csrc/fat_attention_proj.cu``, the same attention code
+through ``csrc/fat_attention.cuh``); like the JAX op, no model path
+calls it: the image tower runs :func:`fat_vit_mha_packed` then
+``fused.matmul_residual``.
 """
 
 from __future__ import annotations
@@ -45,15 +49,18 @@ __all__ = [
     "fat_vit_mha_packed",
     "fat_vit_mha_plain",
     "fat_vit_mha_packed_plain",
+    "fat_vit_mha_packed_proj",
+    "fat_vit_mha_packed_proj_plain",
     "launches",
     "reset_launches",
 ]
 
 # Kernel launches: "fused_mha" counts one per call of the fused kernel's
-# wrapper; "fat_vit_mha" counts the fat kernel through either wrapper.
-launches = {"fused_mha": 0, "fat_vit_mha": 0}
+# wrapper; "fat_vit_mha" counts the fat kernel through either wrapper;
+# "fat_vit_mha_packed_proj" the fused attention + o-projection kernel.
+launches = {"fused_mha": 0, "fat_vit_mha": 0, "fat_vit_mha_packed_proj": 0}
 
-# The fat kernel is compiled for these fat widths padded to 16: 80 for
+# The fat kernels are compiled for these fat widths padded to 16: 80 for
 # SO400M (head_dim 72), 32 for the tiny test config (head_dim 16) and 16
 # for the tiny fat test config (head_dim 7).
 KERNEL_FAT_WIDTHS = (16, 32, 80)
@@ -274,3 +281,65 @@ def fat_vit_mha_packed(qkvf: torch.Tensor, n_heads: int, head_dim: int) -> torch
         base, base + hc * el, base + 2 * hc * el,
         (3 * hc,) * 3, (sp * 3 * hc,) * 3, b, sp, n_heads, head_dim, qkvf.device,
     )
+
+
+# The fused kernel keeps a (64, H*head_dim) bf16 attention block in shared
+# memory: SO400M's 1152 columns fill most of it (205 KB of 227 KB).
+PROJ_MAX_HD = 1152
+
+
+def fat_vit_mha_packed_proj_plain(qkvf, wo, bo, res, n_heads: int, head_dim: int) -> torch.Tensor:
+    """``_fat_vit_proj_kernel``'s cast points: the attention rounded to
+    qkvf's dtype (the kernel's scratch), then ``attn @ wo`` in fp32 plus
+    bo and res in fp32, one rounding to res.dtype."""
+    attn = fat_vit_mha_packed_plain(qkvf, n_heads, head_dim)
+    return (attn.float() @ wo.float() + bo.float() + res.float()).to(res.dtype)
+
+
+def fat_vit_mha_packed_proj(
+    qkvf: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    res: torch.Tensor,
+    n_heads: int,
+    head_dim: int,
+) -> torch.Tensor:
+    """res + fat_attention(qkvf) @ wo + bo, fused.
+
+    qkvf: packed (B, SP, 3*H*C); wo: (H*head_dim, DM); bo: (DM,); res:
+    (B, SP, DM). Returns (B, SP, DM) in res.dtype. CPU tensors take
+    :func:`fat_vit_mha_packed_proj_plain`; CUDA tensors launch
+    ``csrc/fat_attention_proj.cu`` (bf16, contiguous) or raise.
+    """
+    if _on_cpu(qkvf, wo, bo, res):
+        return fat_vit_mha_packed_proj_plain(qkvf, wo, bo, res, n_heads, head_dim)
+    if qkvf.dim() != 3 or wo.dim() != 2:
+        raise ValueError(f"qkvf: expected (B, SP, 3*H*C), wo: (H*D, DM), got "
+                         f"{tuple(qkvf.shape)} and {tuple(wo.shape)}")
+    b, sp, hc3 = qkvf.shape
+    c = fat_width(head_dim)
+    hd, dm = n_heads * head_dim, wo.shape[1]
+    if hc3 != 3 * n_heads * c:
+        raise ValueError(f"width {hc3} != 3 * n_heads * fat_width({head_dim})")
+    if (c + 15) // 16 * 16 not in KERNEL_FAT_WIDTHS:
+        raise ValueError(
+            f"fat width {c} (head_dim {head_dim}) is not one the kernel is "
+            f"compiled for: {KERNEL_FAT_WIDTHS} after padding to 16"
+        )
+    if hd % 16 or hd > PROJ_MAX_HD or dm % 8:
+        raise ValueError(
+            f"kernel needs H*head_dim a multiple of 16 up to {PROJ_MAX_HD} and "
+            f"DM a multiple of 8, got {hd} and {dm}"
+        )
+    _check("qkvf", qkvf, (b, sp, hc3))
+    _check("wo", wo, (hd, dm))
+    _check("bo", bo, (dm,))
+    _check("res", res, (b, sp, dm))
+    out = torch.empty((b, sp, dm), dtype=torch.bfloat16, device=qkvf.device)
+    err = _build.library("fat_attention_proj").mse_fat_attention_proj(
+        qkvf.data_ptr(), wo.data_ptr(), bo.data_ptr(), res.data_ptr(), out.data_ptr(),
+        b, sp, n_heads, c, head_dim, dm, _build.stream_ptr(qkvf.device),
+    )
+    _build.check(err, "fat_vit_mha_packed_proj")
+    launches["fat_vit_mha_packed_proj"] += 1
+    return out

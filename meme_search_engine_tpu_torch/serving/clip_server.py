@@ -219,16 +219,19 @@ def make_app(engine, config: dict):
     return app
 
 
-def build_engine(config: dict):
+def build_engine(config: dict, tiny: Optional[bool] = None):
     """Engine from a service config: the checkpoint's weights, or
-    random-init weights from seed 0."""
+    random-init weights from seed 0. ``tiny`` selects the tiny test
+    geometry; by default a ``model_name`` starting with "tiny" does."""
     import torch
 
     from ..models import siglip
     from .engine import EmbeddingEngine, resolve_device
 
     device = resolve_device(config.get("device", "cuda"))
-    if config.get("model_name", "").startswith("tiny"):
+    if tiny is None:
+        tiny = config.get("model_name", "").startswith("tiny")
+    if tiny:
         cfg = siglip.tiny_test_config()
     else:
         cfg = siglip.SO400M_14_384

@@ -143,7 +143,7 @@ def main(argv=None) -> Run:
     # scalar u8
     from ..index.scalar import train_scalar_quantizer
 
-    sq = train_scalar_quantizer(x.cpu().numpy())
+    sq = train_scalar_quantizer(x)
     sq_codes, enc_t = _timed(dev, lambda: sq.quantize(x))
     recon = sq.dequantize(sq_codes)
     del sq_codes

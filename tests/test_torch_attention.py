@@ -88,7 +88,7 @@ def test_fat_width_and_cpu_path_counts_nothing():
     q = torch.zeros((1, 8, 2, 16))
     ta.fused_mha(q, q, q)
     ta.mha(q, q, q)
-    assert ta.launches == {"fused_mha": 0, "fat_vit_mha": 0}
+    assert ta.launches == {"fused_mha": 0, "fat_vit_mha": 0, "fat_vit_mha_packed_proj": 0}
     with pytest.raises(ValueError):
         ta.fat_vit_mha_packed(torch.empty((1, 16, 384), dtype=torch.bfloat16, device="meta"), 16, 7)
 

@@ -3,9 +3,9 @@
 Marked ``cuda``: each test skips on a host without a GPU. These shapes
 are chosen to hit the kernels' edges (rows and columns that do not fill a
 tile, ragged key tiles, narrow heads, strided views); chip_smoke.py
-checks the SO400M shapes. Tolerances: 0.05 for the GEMMs
-(tests/test_fused.py), atol 2e-2 for attention (tests/test_attention.py:98),
-rtol = atol = 1e-4 for ADC (tests/test_quantizers.py:175); the row gather
+checks the SO400M shapes. Tolerances: 0.05 for the GEMMs and the fused
+attention + o-projection (tests/test_fused.py), atol 2e-2 for attention
+(tests/test_attention.py:98), rtol = atol = 1e-4 for ADC (tests/test_quantizers.py:175); the row gather
 is exact, so it is compared bit for bit. This file
 imports neither JAX nor the JAX package, so on the GPU machine it runs
 without the repository's conftest:
@@ -118,6 +118,69 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         attention.fat_vit_mha_packed(_rn(gen, 1, 8, 3 * 4 * 48), 4, 40)
 
 
+def _fat_qkvf(gen, b, sp, n_valid, h, d):
+    """A packed fat-layout (B, SP, 3*H*C) bf16 qkvf: q pre-scaled with its
+    constant 1, k's constant -1e30 on the pad rows, v's constant 1."""
+    c = attention.fat_width(d)
+    f = torch.randn((b, sp, 3, h, c), generator=gen, device="cuda")
+    f[..., d:] = 0
+    f[:, :, 0, :, :d] *= d**-0.5
+    f[:, :, 0, :, d] = 1
+    f[:, n_valid:, 1] = 0
+    f[:, n_valid:, 1, :, d] = -1e30
+    f[:, :, 2, :, d] = 1
+    return f.reshape(b, sp, 3 * h * c).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "b,sp,n_valid,h,d",
+    [(2, 16, 4, 16, 7), (2, 16, 4, 4, 16), (2, 100, 90, 4, 16), (2, 736, 729, 16, 72)],
+    ids=["tiny_fat", "tiny", "ragged", "so400m"],
+)
+def test_fat_attention_proj_kernel(gen, b, sp, n_valid, h, d):
+    """Kernel 8 against its plain version and against kernels 7 then 2,
+    on the valid rows (pad rows hold finite values no caller reads)."""
+    qkvf = _fat_qkvf(gen, b, sp, n_valid, h, d)
+    dm = h * d
+    wo, bo, res = _rn(gen, h * d, dm, std=(h * d) ** -0.5), _rn(gen, dm, std=0.02), _rn(gen, b, sp, dm)
+    attention.reset_launches()
+    got = attention.fat_vit_mha_packed_proj(qkvf, wo, bo, res, h, d)
+    torch.cuda.synchronize()
+    assert attention.launches["fat_vit_mha_packed_proj"] == 1
+    assert got.shape == (b, sp, dm) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    want = attention.fat_vit_mha_packed_proj_plain(qkvf, wo, bo, res, h, d)
+    _assert_close(got[:, :n_valid], want[:, :n_valid], 0.05)
+    composed = fused.matmul_residual(attention.fat_vit_mha_packed(qkvf, h, d), wo, bo, res)
+    _assert_close(got[:, :n_valid], composed[:, :n_valid], 0.05)
+    assert attention.launches["fat_vit_mha_packed_proj"] == 1
+
+
+def test_fat_attention_proj_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    h, d, sp = 4, 16, 16
+    qkvf = _fat_qkvf(gen, 1, sp, sp, h, d)
+    wo, bo, res = _rn(gen, h * d, 64), _rn(gen, 64), _rn(gen, 1, sp, 64)
+    attention.reset_launches()
+    with pytest.raises(TypeError):
+        attention.fat_vit_mha_packed_proj(qkvf.float(), wo, bo, res, h, d)
+    with pytest.raises(TypeError):
+        attention.fat_vit_mha_packed_proj(qkvf, wo, bo, res.float(), h, d)
+    with pytest.raises(ValueError, match="shape"):
+        attention.fat_vit_mha_packed_proj(qkvf, wo[:32].contiguous(), bo, res, h, d)
+    with pytest.raises(ValueError, match="shape"):
+        attention.fat_vit_mha_packed_proj(qkvf, wo, bo, res[:, :8].contiguous(), h, d)
+    with pytest.raises(ValueError, match="width"):
+        attention.fat_vit_mha_packed_proj(qkvf, wo, bo, res, h, 8)
+    with pytest.raises(ValueError, match="compiled for"):  # head_dim 40: fat width 48
+        attention.fat_vit_mha_packed_proj(_rn(gen, 1, 8, 3 * 4 * 48), _rn(gen, 160, 64), bo,
+                                          _rn(gen, 1, 8, 64), 4, 40)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention.fat_vit_mha_packed_proj(qkvf, _rn(gen, h * d, 60), _rn(gen, 60), _rn(gen, 1, sp, 60), h, d)
+    with pytest.raises(ValueError):
+        attention.fat_vit_mha_packed_proj(qkvf, wo, bo, res.cpu(), h, d)
+    assert attention.launches["fat_vit_mha_packed_proj"] == 0
+
+
 @pytest.mark.parametrize("s", [64, 24, 729])
 @pytest.mark.parametrize("d", [72, 16])
 @pytest.mark.parametrize("stable", ["row", "scalar", "none"])
@@ -210,7 +273,8 @@ def test_tiny_engine_serves_both_towers_on_the_card():
                  (card.embed_texts(texts), cpu.embed_texts(texts))):
         assert np.isfinite(a).all()
         assert ((a * b).sum(-1)).min() > 0.999
-    assert attention.launches == {"fat_vit_mha": 2 * cfg.depth, "fused_mha": 2 * cfg.text_depth}
+    assert attention.launches == {"fat_vit_mha": 2 * cfg.depth, "fused_mha": 2 * cfg.text_depth,
+                                  "fat_vit_mha_packed_proj": 0}
 
 
 def test_xla_image_route_on_the_card():
@@ -231,7 +295,7 @@ def test_xla_image_route_on_the_card():
     card = siglip.prepare_params(_to_cuda(params), cfg)
     attention.reset_launches()
     got = siglip.encode_image(card, imgs.cuda(), cfg).cpu()
-    assert attention.launches == {"fused_mha": cfg.depth, "fat_vit_mha": 0}
+    assert attention.launches == {"fused_mha": cfg.depth, "fat_vit_mha": 0, "fat_vit_mha_packed_proj": 0}
     assert torch.isfinite(got).all() and ((got * want).sum(-1)).min() > 0.999
 
 

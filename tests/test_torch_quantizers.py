@@ -315,6 +315,34 @@ def test_scalar_quantizer_matches_jax():
     np.testing.assert_array_equal(got, jsq.integer_dot(y, codes))
 
 
+@pytest.mark.parametrize(
+    "n,kind",
+    [(1001, "normal"), (1000, "normal"), (2, "normal"), (777, "ties"), (999, "fp16"),
+     (1_000_000, "normal")],
+)
+def test_column_quantile_is_np_quantile_bit_for_bit(n, kind):
+    """The order statistics found with torch.kthvalue, interpolated in
+    numpy's dtypes and formula, give np.quantile's bits: odd and even N,
+    ties, fp16-rounded data, the quantizer's cut-offs at the 1e6 corpus
+    (gammas 0.9995 and 0 there) and gammas on both sides of 0.5; and a
+    tensor trains the same quantizer as its numpy copy."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((n, 5 if n < 10**6 else 2)).astype(np.float32)
+    if kind == "ties":
+        x = np.round(x * 2) / 2
+    elif kind == "fp16":
+        x = x.astype(np.float16).astype(np.float32)
+    for q in (tscalar.CUTOFF, 1 - tscalar.CUTOFF, 0.25, 0.5, 0.7, 1 / 3, 0.0, 1.0):
+        want = np.quantile(x, q, axis=0)
+        got = tscalar.column_quantile(torch.from_numpy(x), q, chunk=2)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if n == 1001:
+        a, b = tscalar.train_scalar_quantizer(torch.from_numpy(x)), jscalar.train_scalar_quantizer(x)
+        for f in ("offsets", "scales", "q_offsets", "q_scales"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
 # -- the quantizer tool -----------------------------------------------------------
 
 
