@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero with no result line:
    card at SigLIP SO400M/14@384 shapes with B=2 and again with B=128
    (stated tolerances), then timed at B=128 (CUDA events, median) beside
    its plain version, one PyTorch library call for the same function,
-   and its bound. The image kernels run at the image tower's shapes; the
+   and its bound, with its TFLOP/s and share of the bf16 peak;
+   ``ln_mlp_residual``'s two launches (LN + fc1 + gelu, fc2 + residual)
+   are checked and timed apart as well. The image kernels run at the image tower's shapes; the
    fused attention kernel at the text tower's (B, 64, 16, 72), in all
    three stable modes at B=2, and once more at S=729, B=2. The ADC kernel
    at N = 1,000,003 codes of M = 64 bytes with B = 1 and B = 64 LUTs of
@@ -713,7 +715,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, out in sorted(_build.build_log.items()):
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma", "setmaxnreg", "arning")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     # -- 3. kernel checks and timings ---------------------------------------
@@ -741,6 +743,7 @@ def main() -> int:
     g1, be1 = (1 + rn(D, std=0.1)).contiguous(), rn(D, std=0.1)
     fc1, fc2 = dense(D, M_REAL), dense(M_REAL, D)
     w1, b1, w2 = (t.contiguous() for t in fused.pad_hidden(fc1["w"], fc1["b"], fc2["w"]))
+    MP = w1.shape[1]
     wkv = torch.cat([attn_p["k"]["w"], attn_p["v"]["w"]], 1).contiguous()
     bkv = torch.cat([attn_p["k"]["b"], attn_p["v"]["b"]]).contiguous()
     kmask = (S, H, C, DH)
@@ -758,6 +761,7 @@ def main() -> int:
     def cases(b):
         x, qkvf, attn_out = inputs(b)
         m = b * SP
+        h = fused.ln_matmul_plain(x, g1, be1, w1, b1, act="gelu")  # fc2's input
         x2 = x.reshape(m, D)
         qh = qkvf[..., :HC].reshape(b, SP, H, C)[..., :DH].permute(0, 2, 1, 3).contiguous()
         kh = qkvf[..., HC : 2 * HC].reshape(b, SP, H, C)[..., :DH].permute(0, 2, 1, 3).contiguous()
@@ -807,17 +811,37 @@ def main() -> int:
                 el * (3 * m * D + D * D + D),
                 CHECK_TOL, None,
             ),
+            # with x as the residual (b2 left out, as matmul_residual's yardstick)
             "ln_mlp_residual": (
                 lambda: fused.ln_mlp_residual(x, g1, be1, w1, b1, w2, fc2["b"]),
                 lambda: fused.ln_mlp_residual_plain(x, g1, be1, fc1["w"], fc1["b"], fc2["w"], fc2["b"]),
                 lambda: torch.addmm(
-                    fc2["b"],
+                    x2,
                     F.gelu(torch.addmm(fc1["b"], F.layer_norm(x2, (D,), g1, be1, 1e-6), fc1["w"]),
                            approximate="tanh"),
                     fc2["w"],
                 ),
                 2.0 * 2 * m * D * M_REAL,
                 el * (2 * m * D + 2 * D * M_REAL + M_REAL + 3 * D),
+                CHECK_TOL, None,
+            ),
+            # its two launches apart, at the padded hidden width MP: LN +
+            # fc1 + gelu into the (rows, MP) scratch, then fc2 + b2 + x
+            "ln_mlp_residual[fc1]": (
+                lambda: fused.ln_matmul(x, g1, be1, w1, b1, act="gelu"),
+                lambda: fused.ln_matmul_plain(x, g1, be1, w1, b1, act="gelu"),
+                lambda: F.gelu(torch.addmm(b1, F.layer_norm(x2, (D,), g1, be1, 1e-6), w1),
+                               approximate="tanh"),
+                2.0 * m * D * MP,
+                el * (m * D + D * MP + m * MP + 2 * D + MP),
+                CHECK_TOL, None,
+            ),
+            "ln_mlp_residual[fc2]": (
+                lambda: fused.matmul_residual(h, w2, fc2["b"], x),
+                lambda: fused.matmul_residual_plain(h, w2, fc2["b"], x),
+                lambda: torch.addmm(x2, h.reshape(m, MP), w2),
+                2.0 * m * MP * D,
+                el * (m * MP + MP * D + D + 2 * m * D),
                 CHECK_TOL, None,
             ),
         }
@@ -895,11 +919,26 @@ def main() -> int:
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             tflops=flops / t_k / 1e9,
+            peak_share=flops / t_k * 1e3 / peak_flops,
         )
         log(f"time {name} B={B_TIME}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
             f"library {t_l:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
-            f"({results[name]['bound_by']}), {flops / t_k / 1e9:.1f} TFLOP/s")
+            f"({results[name]['bound_by']}), {flops / t_k / 1e9:.1f} TFLOP/s = "
+            f"{results[name]['peak_share']:.1%} of the bf16 peak")
     del big, kern, plain, lib  # the closures hold the B=128 inputs
+    # ln_matmul's other route, measured beside it and run by no path: the
+    # LayerNorm written out first (F.layer_norm into a bf16 copy that the
+    # GEMM reads back) and the kernel's SS form on the copy
+    # (matmul_residual with a zero residual, whose reads it adds)
+    xr = rn(B_TIME, SP, D)
+    xn = F.layer_norm(xr, (D,), g1, be1, 1e-6)
+    zero = torch.zeros((B_TIME, SP, 3 * HC), dtype=torch.bfloat16, device=dev)
+    copy_route = {"layer_norm": time_ms(lambda: F.layer_norm(xr, (D,), g1, be1, 1e-6), reps=10),
+                  "ss_gemm": time_ms(lambda: fused.matmul_residual(xn, wqkv, bqkv, zero), reps=10)}
+    results["ln_matmul"]["normalised_copy_route_ms"] = copy_route
+    log(f"time ln_matmul's normalised-copy route B={B_TIME}: F.layer_norm {copy_route['layer_norm']:.3f} ms "
+        f"+ SS GEMM {copy_route['ss_gemm']:.3f} ms, against the kernel's {results['ln_matmul']['ms']:.3f} ms")
+    del xr, xn, zero
     torch.cuda.empty_cache()
 
     # kernel 8, the attention fused with the o-projection and the residual:
@@ -1407,7 +1446,8 @@ def main() -> int:
         "fused_mha": ("mha.cu", "meme_search_engine_tpu/ops/attention.py:154", "fused_mha",
                       text_counts),
     }
-    keys = ("max_abs_err", "max_abs_err_b128", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "max_abs_err_b128", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "tflops", "peak_share")
     kernels = []
     for name, (source, replaces, counter, run_counts) in meta.items():
         e = {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
@@ -1415,6 +1455,10 @@ def main() -> int:
         e.update({k: results[name][k] for k in keys})
         if name == "ln_matmul":
             e["map_kv"] = {k: results["ln_matmul[map_kv]"][k] for k in keys}
+            e["normalised_copy_route_ms"] = results[name]["normalised_copy_route_ms"]
+        if name == "ln_mlp_residual":
+            for part in ("fc1", "fc2"):
+                e[part] = {k: results[f"ln_mlp_residual[{part}]"][k] for k in keys}
         if name == "fat_vit_mha_packed":
             # fat_vit_mha (attention.py:321): the same kernel, other strides
             e["unpacked"] = {"replaces": "meme_search_engine_tpu/ops/attention.py:321",

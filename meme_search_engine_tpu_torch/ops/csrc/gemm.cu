@@ -1,4 +1,4 @@
-// GEMM kernels with fused LayerNorm prologue and bias / gelu / residual /
+// GEMM kernels with a fused LayerNorm prologue and bias / gelu / residual /
 // key-mask epilogues, for the SigLIP image tower on Hopper (sm_90a).
 //
 // Replaces the TPU kernels
@@ -11,25 +11,42 @@
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): at the image
 // tower's shapes (M = B*736 rows, K = 1152 or 4352, N = 1152..4352) every
 // call does hundreds of operations per byte moved, so all of them are
-// bound by tensor-core operations, not bytes.
+// bound by tensor-core operations, not bytes, and only wgmma reaches the
+// tensor cores' full rate.
 //
-// Design: one CTA computes a 128x128 output tile with eight warps, each a
-// 64x32 sub-tile of mma.sync m16n8k16 bf16 products with fp32
-// accumulators in registers, operands fed by ldmatrix from padded
-// (conflict-free) shared tiles. The K loop steps 32 at a time through a
-// 4-stage cp.async ring, so three tiles are in flight while the tensor
-// cores work on the fourth. The LayerNorm is applied in shared memory to
-// each A tile as it lands (fp32 row statistics from a one-warp-per-row
-// pre-pass), so the normalised activations never go to device memory. The epilogue
-// works from the accumulator registers: bias in fp32, then the optional
-// tanh-gelu, the residual and the packed-QKV key mask, one rounding to
-// bf16. wgmma, TMA and warp specialisation, the route to the card's full
-// tensor-core rate, are later work.
+// Design: a persistent, warp-specialised kernel of three warpgroups, one
+// CTA per SM walking 128 x BN output tiles (BN 128, 192 or, without LN,
+// 256: the widest that wastes few of N's columns). Warpgroup 2 produces: it
+// gives up registers (setmaxnreg) and one of its threads keeps a ring of three
+// or four stages full with TMA loads, a 128 x 64 tile of A (K-major) and a
+// 64 x BN tile of W (N-major, BN/64 boxes), both 128-byte swizzled, each
+// stage guarded by a full and an empty mbarrier. Warpgroups 0 and 1
+// consume, each owning 64 rows of the tile with fp32 accumulators in
+// registers; W reaches wgmma as an MN-major B operand in shared memory.
+// Without LN (matmul_residual), A is a shared-memory operand too (the SS
+// form). With LN (ln_matmul), each consumer loads its A fragments from the
+// swizzled tile with ldmatrix (the swizzle's XOR applied to the address),
+// normalises them in fp32 with its rows' (mu, 1/sigma) held in registers
+// for the whole K loop and gamma, beta staged once in shared memory,
+// rounds them to bf16 and issues wgmma with A from registers (the RS
+// form), so the normalised activations never reach device memory; two
+// sets of fragments let one stage be normalised while the last one's
+// products run. The row statistics come from a one-warp-per-row pre-pass.
+// Either way one stage's products stay in flight while the next stage's
+// are issued. The epilogue works from the accumulators: bias in fp32, then
+// ln_matmul's optional tanh-gelu and packed-QKV key mask, or
+// matmul_residual's residual (loaded by TMA into shared memory while the
+// products run), one rounding to bf16, then the tile goes through
+// 128-byte-swizzled shared memory to TMA stores, which run on while the
+// next tile's products do. TMA fills out-of-bounds loads with zeros and
+// clips out-of-bounds stores, which covers ragged M, N and K (gamma and
+// beta are staged as zero past K).
 //
 // Numerics follow the reference: LN statistics in fp32, LN output rounded
 // to bf16 before the MMA (fused.py:39-41), fp32 accumulation, bias (and
 // residual) added in fp32, one rounding to bf16.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,15 +55,14 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, NT = 256, STAGES = 4;
-constexpr int AS = BK + 8;  // shared row stride of an A tile (bf16): 80 B
-constexpr int WS = BN + 8;  // shared row stride of a W tile (bf16): 272 B
-constexpr int A_TILE = BM * AS, W_TILE = BK * WS;
-constexpr int SMEM_BYTES = STAGES * (A_TILE + W_TILE) * 2 + 2 * BM * 4;
+constexpr int BM = 128, BK = 64, NT = 384, MAX_STAGES = 4;
+constexpr int A_BYTES = BM * BK * 2;  // one stage of A: 128 rows of 128 B
+constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory a block can use
+constexpr int BAR_BYTES = 2 * MAX_STAGES * 8 + 16;  // full, empty, two residual
 
 struct Epilogue {
   const bf16* bias;  // (N,)
-  const bf16* res;   // (M, N) or null
+  const bf16* res;   // (M, N), matmul_residual only
   int act;           // 0: none, 1: tanh-gelu
   // packed fat-QKV key mask: rows with (row % sp) >= n_valid get, in
   // columns [hc, 2hc), 0 everywhere except -1e30 where (col - hc) % c == d.
@@ -59,40 +75,235 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 0.5 x (1 + tanh(u)) written as x * sigmoid(2u), u = sqrt(2/pi) (x +
+// 0.044715 x^3): one exponential; the limits are exact (x -> -inf gives
+// -0, x -> inf gives x)
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k0 = 0.7978845608028654f;  // sqrt(2/pi)
-  return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
+  return __fdividef(x, 1.0f + __expf(-2.0f * k0 * (x + 0.044715f * x * x * x)));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; zero-fills the destination when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
+// -- mbarriers and TMA -------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+// wait until the phase of the given parity has completed; a wait that
+// never ends (a broken ring) traps after 2^26 polls, seconds at the
+// least, so the launch fails with an error rather than hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 26)) asm volatile("trap;\n");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// one 2-D box at element coordinates (c0 innermost, c1) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// one 2-D box from shared memory to element coordinates (c0, c1); parts
+// of the box past the array's bounds are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wait until every TMA store this thread issued has read its source
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// barrier over the 128 threads of one consumer warpgroup
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ __nv_bfloat162 u32_as_bf2(uint32_t v) {
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
+__device__ __forceinline__ uint32_t bf2_as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// -- wgmma ------------------------------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses to a register across a wgmma
+// that reads or writes it behind its back
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// matrix descriptor of a 128-byte-swizzled operand in shared memory; the
+// byte offsets: lbo between 64-element column blocks of an MN-major
+// operand (unused for K-major), sbo between groups of 8 rows (1024 B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// D(64 x N, fp32) += A(64 x 16) B(16 x N), bf16 operands, B MN-major.
+// ss: A from shared memory (K-major); rs: A from registers, each thread's
+// four words laid out as mma.sync's m16n8k16 A fragment of its warp's 16
+// rows. The accumulator layout: d[4j + t] holds row g (t < 2) or g + 8
+// (t >= 2) of the warp's 16, column 8j + 2q + (t & 1), g = lane / 4,
+// q = lane % 4.
+template <int N>
+struct Mma;
+
+#define D8(i)                                                                             \
+  "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
+      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+template <> struct Mma<128> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+        : "l"(da), "l"(db), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Mma<192> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "%96, %97, p, 1, 1, 0, 1;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80), D8(88)
+        : "l"(da), "l"(db), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80), D8(88)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Mma<256> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, 0, 1;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+        : "l"(da), "l"(db), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+#undef D8
 
 union Pack8 {
   uint4 u;
@@ -102,7 +313,7 @@ union Pack8 {
 // fp32 LayerNorm statistics (mean, 1/sqrt(var + 1e-6)) of each row of
 // x(M, K), one warp per row, two passes (mean, then centred variance).
 // Computed once here rather than in every CTA of a row block: with
-// N / 128 CTAs per row block, recomputing them re-read x up to 34 times.
+// N / BN tiles per row block, recomputing them re-read x up to 34 times.
 __global__ void __launch_bounds__(256)
 ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats, int M, int K) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
@@ -130,180 +341,382 @@ ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats, int M, i
   if (lane == 0) stats[row] = make_float2(mu, rs);
 }
 
-template <bool LN>
-__global__ void __launch_bounds__(NT, 2)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ gamma,
-            const bf16* __restrict__ beta, const float2* __restrict__ stats,
-            const bf16* __restrict__ W, bf16* __restrict__ out, int M, int N, int K,
-            Epilogue epi) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sW = sA + STAGES * A_TILE;
-  float* sMu = reinterpret_cast<float*>(sW + STAGES * W_TILE);
-  float* sRs = sMu + BM;
+// LayerNorm of two bf16 values of one row: (x - mu) * rs * g + b in fp32,
+// rounded to bf16; gb = ((g0, b0), (g1, b1)) in bf16
+__device__ __forceinline__ uint32_t ln_pair(uint32_t v, float mu, float rs, uint2 gb) {
+  const __nv_bfloat162 h = u32_as_bf2(v), p0 = u32_as_bf2(gb.x), p1 = u32_as_bf2(gb.y);
+  __nv_bfloat162 y =
+      __floats2bfloat162_rn((__low2float(h) - mu) * rs * __low2float(p0) + __high2float(p0),
+                            (__high2float(h) - mu) * rs * __low2float(p1) + __high2float(p1));
+  return *reinterpret_cast<uint32_t*>(&y);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm*64, cols wn*32
-  const int KT = (K + BK - 1) / BK;
-
-  // this thread's two 16-byte chunks of each tile
-  auto load_stage = [&](int slot, int kt) {
-    const int k0 = kt * BK;
+// loads the A fragments of one stage for this thread's warp (16 rows) with
+// ldmatrix and normalises them: a[kk] covers k 16 kk .. 16 kk + 15 of the
+// stage. ldmatrix rows: lanes 0-15 give rows 0-15 at k 0-7 of each 16,
+// lanes 16-31 the same rows at k 8-15. The 16-byte chunk c of row r sits
+// at chunk c ^ (r % 8), and r % 8 == lane % 8 here.
+__device__ __forceinline__ void ln_fragments(uint32_t (&a)[4][4], uint32_t arow, int lane,
+                                             const __nv_bfloat162* gb, float2 st0,
+                                             float2 st1) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int id = tid + i * NT;
-      const int r = id >> 2, c = (id & 3) * 8;  // A: 128 rows x 4 chunks
-      const int row = m0 + r, k = k0 + c;
-      const bool pa = row < M && k < K;
-      cp_async16(sA + slot * A_TILE + r * AS + c, pa ? A + (size_t)row * K + k : A, pa);
-      const int rr = id >> 4, cc = (id & 15) * 8;  // W: 32 rows x 16 chunks
-      const int kr = k0 + rr, col = n0 + cc;
-      const bool pw = kr < K && col < N;
-      cp_async16(sW + slot * W_TILE + rr * WS + cc, pw ? W + (size_t)kr * N + col : W, pw);
-    }
-  };
-
-  // the prologue's loads go out before the row statistics are read
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(a[kk], arow + (((2 * kk + (lane >> 4)) ^ (lane & 7)) << 4));
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    asm volatile("cp.async.commit_group;\n");
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint2 lo = *reinterpret_cast<const uint2*>(gb + kk * 16);
+    const uint2 hi = *reinterpret_cast<const uint2*>(gb + kk * 16 + 8);
+    a[kk][0] = ln_pair(a[kk][0], st0.x, st0.y, lo);
+    a[kk][1] = ln_pair(a[kk][1], st1.x, st1.y, lo);
+    a[kk][2] = ln_pair(a[kk][2], st0.x, st0.y, hi);
+    a[kk][3] = ln_pair(a[kk][3], st1.x, st1.y, hi);
   }
+}
 
-  if (LN) {
-    for (int r = tid; r < BM; r += NT) {
-      const float2 st = m0 + r < M ? stats[m0 + r] : make_float2(0.f, 0.f);
-      sMu[r] = st.x;
-      sRs[r] = st.y;
-    }
-    __syncthreads();
-  }
+// The ring's position as a consumer walks it.
+struct Ring {
+  uint32_t s0, full0, empty0;  // shared addresses: stage 0, the full and empty barriers
+  int stages, stage, prev;     // prev: the stage whose products are still in flight
+  uint32_t phase;
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
-
-  for (int kt = 0; kt < KT; ++kt) {
-    const int slot = kt % STAGES;
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    if (LN) {
-      // normalise the A chunks this thread copied, in place
-      const int k0 = kt * BK;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int id = tid + i * NT;
-        const int r = id >> 2, c = (id & 3) * 8;
-        const int k = k0 + c;
-        if (k < K) {
-          uint4* p4 = reinterpret_cast<uint4*>(sA + slot * A_TILE + r * AS + c);
-          Pack8 p;
-          p.u = *p4;
-          const float mu = sMu[r], rs = sRs[r];
-          Pack8 g, b;
-          g.u = *reinterpret_cast<const uint4*>(gamma + k);
-          b.u = *reinterpret_cast<const uint4*>(beta + k);
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            const float xc = __bfloat162float(p.h[t]) - mu;
-            p.h[t] = __float2bfloat16(xc * rs * __bfloat162float(g.h[t]) +
-                                      __bfloat162float(b.h[t]));
-          }
-          *p4 = p.u;
-        }
-      }
-    }
-    __syncthreads();  // stage kt visible to all; all warps done with kt-1
-    if (kt + STAGES - 1 < KT) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    asm volatile("cp.async.commit_group;\n");
-
-    const bf16* tA = sA + slot * A_TILE;
-    const bf16* tW = sW + slot * W_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(a[i], tA + (wm * 64 + i * 16 + (lane & 15)) * AS + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(
-            r, tW + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * WS + wn * 32 + jp * 16 +
-                   (lane >> 4) * 8);
-        b[2 * jp][0] = r[0];
-        b[2 * jp][1] = r[1];
-        b[2 * jp + 1][0] = r[2];
-        b[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+  __device__ __forceinline__ void wait_full() const { mbar_wait(full0 + 8 * stage, phase); }
+  // release the stage in flight (its products are done) and make the
+  // current one the stage in flight
+  __device__ __forceinline__ void release_prev(bool leader) {
+    if (prev >= 0 && leader) mbar_arrive(empty0 + 8 * prev);
+    prev = stage;
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
-  asm volatile("cp.async.wait_group 0;\n");
+};
 
-  // epilogue from the accumulators: thread holds (row g, cols 2q, 2q+1)
-  // and (row g+8, same cols) of each 16x8 tile
-  const int g = lane >> 2, q = lane & 3;
+// One stage of the LN (RS) mainloop. cur holds the stage's normalised A
+// fragments: issue its products, wait for the stage before it (whose
+// fragments are in next) and release that stage, then load and normalise
+// the following stage into next while this stage's products run.
+template <int BN>
+__device__ __forceinline__ void ln_stage(float* acc, uint32_t (&cur)[4][4],
+                                         uint32_t (&next)[4][4], bool more, Ring& ring,
+                                         uint32_t stage_bytes, uint32_t arow, int lane,
+                                         bool leader, const __nv_bfloat162* gb, float2 st0,
+                                         float2 st1) {
+  const uint32_t sa = ring.s0 + ring.stage * stage_bytes;
+  const uint64_t db = smem_desc(sa + A_BYTES, BK * 128, 1024);
+  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn * 32 + j * 8 + 2 * q;
-    if (col >= N) continue;
-    const __nv_bfloat162 bias2 = *reinterpret_cast<const __nv_bfloat162*>(epi.bias + col);
-    const float bias_v[2] = {__low2float(bias2), __high2float(bias2)};
+  for (int kk = 0; kk < 4; ++kk) Mma<BN>::rs(acc, cur[kk], db + kk * (16 * 128 >> 4));
+  wgmma_commit();
+  wgmma_wait<1>();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = m0 + wm * 64 + i * 16 + g + hh * 8;
-        if (row >= M) continue;
-        float v[2];
+    for (int t = 0; t < 4; ++t) fence_operand(next[kk][t]);
+  ring.release_prev(leader);
+  if (more) {
+    ring.wait_full();
+    ln_fragments(next, ring.s0 + ring.stage * stage_bytes + arow, lane, gb + BK, st0, st1);
+  }
+}
+
+template <int BN, bool LN>
+__global__ void __launch_bounds__(NT, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_w,
+            const __grid_constant__ CUtensorMap tma_out,
+            const __grid_constant__ CUtensorMap tma_res, const bf16* __restrict__ gamma,
+            const bf16* __restrict__ beta, const float2* __restrict__ stats, int M, int N,
+            int K, int stages, Epilogue epi) {
+  constexpr int STAGE = A_BYTES + BK * BN * 2;  // A, then W as BN/64 boxes of 64 x 64
+  constexpr int HALF = 64 * BN * 2;             // a consumer's 64 rows of the output tile
+  extern __shared__ unsigned char smem_raw[];
+  // shared memory: the ring's stages, the output tile, the barriers, then
+  // gamma and beta. Stages and the output tile start on 1024-byte
+  // boundaries: the 128-byte swizzle repeats every 8 rows of 128 B, and
+  // TMA and wgmma both read it from the address.
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  const uint32_t s0 = raw + pad, out0 = s0 + stages * STAGE;
+  const uint32_t full0 = out0 + 2 * HALF, empty0 = full0 + MAX_STAGES * 8,
+                 res0 = empty0 + MAX_STAGES * 8;
+  __nv_bfloat162* gb =  // (gamma, beta) of each k
+      reinterpret_cast<__nv_bfloat162*>(smem_raw + pad + stages * STAGE + 2 * HALF + BAR_BYTES);
+
+  const int KT = (K + BK - 1) / BK, tiles_n = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * tiles_n;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's expect_tx arrival
+      mbar_init(empty0 + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    mbar_init(res0, 1);  // each consumer's residual rows
+    mbar_init(res0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (LN) {
+    for (int k = threadIdx.x; k < KT * BK; k += NT)
+      gb[k] = k < K ? __halves2bfloat162(gamma[k], beta[k]) : __floats2bfloat162_rn(0.f, 0.f);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // producer: one thread issues every TMA load of the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+        for (int kt = 0; kt < KT; ++kt) {
+          const uint32_t full = full0 + 8 * stage, sa = s0 + stage * STAGE;
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full, STAGE);
+          tma_load(sa, &tma_a, kt * BK, m0, full);
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          v[t] = acc[i][j][2 * hh + t] + bias_v[t];
-          if (epi.act == 1) v[t] = gelu_tanh(v[t]);
-        }
-        if (epi.res) {
-          const __nv_bfloat162 r2 =
-              *reinterpret_cast<const __nv_bfloat162*>(epi.res + (size_t)row * N + col);
-          v[0] += __low2float(r2);
-          v[1] += __high2float(r2);
-        }
-        if (epi.c > 0 && (row % epi.sp) >= epi.n_valid) {
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            const int cc = col + t;
-            if (cc >= epi.hc && cc < 2 * epi.hc)
-              v[t] = ((cc - epi.hc) % epi.c == epi.d) ? -1e30f : 0.f;
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(sa + A_BYTES + j * BK * 128, &tma_w, n0 + 64 * j, kt * BK, full);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
           }
         }
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-            __floats2bfloat162_rn(v[0], v[1]);
       }
     }
+  } else {
+    // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const bool leader = tid == 0;
+    // this consumer's half of the output tile: BN/64 boxes of 64 rows of
+    // 128 B, 128-byte swizzled like the operands, so that the fragment
+    // stores below hit 32 distinct banks
+    const uint32_t half = out0 + wg * HALF, res_bar = res0 + 8 * wg;
+    uint32_t res_phase = 0;
+    Ring ring{s0, full0, empty0, stages, 0, -1, 0};
+    float acc[BN / 2];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+      const int mh = m0 + wg * 64;                     // the first row of this consumer's half
+      const int row0 = mh + warp * 16 + g;             // this thread's rows: row0, row0 + 8
+      if (!LN && leader) {
+        // the residual rows come in by TMA while the products run, into
+        // the output tile once its last store has read it
+        bulk_wait_read();
+        mbar_expect_tx(res_bar, HALF);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j) tma_load(half + j * 8192, &tma_res, n0 + 64 * j, mh, res_bar);
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        acc[i] = 0.f;
+        fence_operand(acc[i]);
+      }
+      if constexpr (LN) {
+        // two sets of A fragments: one feeds the products in flight while
+        // the next stage is normalised into the other
+        float2 st0 = make_float2(0.f, 0.f), st1 = make_float2(0.f, 0.f);
+        if (row0 < M) st0 = stats[row0];
+        if (row0 + 8 < M) st1 = stats[row0 + 8];
+        const uint32_t arow = (wg * 64 + warp * 16 + (lane & 15)) * 128;
+        const __nv_bfloat162* gq = gb + 2 * q;  // this thread's k pairs: 2q, 2q + 1 (+ 8)
+        uint32_t a0[4][4], a1[4][4];
+        ring.wait_full();
+        ln_fragments(a0, ring.s0 + ring.stage * STAGE + arow, lane, gq, st0, st1);
+        for (int kt = 0; kt < KT; kt += 2) {
+          ln_stage<BN>(acc, a0, a1, kt + 1 < KT, ring, STAGE, arow, lane, leader,
+                       gq + kt * BK, st0, st1);
+          if (kt + 1 < KT)
+            ln_stage<BN>(acc, a1, a0, kt + 2 < KT, ring, STAGE, arow, lane, leader,
+                         gq + (kt + 1) * BK, st0, st1);
+        }
+      } else {
+        for (int kt = 0; kt < KT; ++kt) {
+          const uint32_t sa = s0 + ring.stage * STAGE;
+          ring.wait_full();
+          const uint64_t da = smem_desc(sa + wg * 64 * 128, 16, 1024);
+          const uint64_t db = smem_desc(sa + A_BYTES, BK * 128, 1024);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Mma<BN>::ss(acc, da + kk * (32 >> 4), db + kk * (16 * 128 >> 4));
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage's products are done
+          ring.release_prev(leader);
+        }
+      }
+      // the last stage's products
+      wgmma_wait<0>();
+      if (ring.prev >= 0 && leader) mbar_arrive(empty0 + 8 * ring.prev);
+      ring.prev = -1;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
+
+      // epilogue from the accumulators: bias, gelu, residual, key mask,
+      // then the tile through shared memory to one TMA store per box,
+      // which clips rows past M and columns past N and runs on while the
+      // next tile's products do
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * q;
+        if (col >= N) continue;  // N % 8 == 0, so col + 1 < N too
+        const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(epi.bias + col);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) acc[4 * j + t] += (t & 1) ? __high2float(b2) : __low2float(b2);
+      }
+      if (LN && epi.act == 1) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = gelu_tanh(acc[i]);
+      }
+      if constexpr (!LN) {
+        mbar_wait(res_bar, res_phase);
+        res_phase ^= 1;
+      } else {
+        if (leader) bulk_wait_read();  // the last tile's store has read the buffer
+        named_sync(1 + wg);
+      }
+      bool pad_row[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        pad_row[hh] = LN && epi.c > 0 && ((row0 + 8 * hh) % epi.sp) >= epi.n_valid;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = warp * 16 + g + 8 * hh;  // row within the half; r % 8 == g
+          const uint32_t addr = half + (j / 8) * 8192 + r * 128 + (((j % 8) ^ g) << 4) + 4 * q;
+          float v[2] = {acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]};
+          if constexpr (!LN) {
+            const __nv_bfloat162 r2 = u32_as_bf2(lds_u32(addr));
+            v[0] += __low2float(r2);
+            v[1] += __high2float(r2);
+          }
+          if (pad_row[hh]) {
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+              const int cc = n0 + 8 * j + 2 * q + t;
+              if (cc >= epi.hc && cc < 2 * epi.hc)
+                v[t] = ((cc - epi.hc) % epi.c == epi.d) ? -1e30f : 0.f;
+            }
+          }
+          sts_u32(addr, bf2_as_u32(__floats2bfloat162_rn(v[0], v[1])));
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(1 + wg);
+      if (leader) {
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j) tma_store(&tma_out, half + j * 8192, n0 + 64 * j, mh);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
+}
+
+// -- host side ----------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; the runtime hands out its
+// entry point, so this library links nothing beyond the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a map over a row-major (rows, cols) bf16 array whose boxes are box_rows
+// rows of 64 columns (128 B), 128-byte swizzled; out-of-bounds reads give 0
+int make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the widest tile that wastes at most 1/32 of N's columns, else the one
+// that wastes the fewest (the widest on a tie). With LN, tiles are at most
+// 192 wide: at 256 the accumulators, two sets of A fragments and the
+// normalising do not fit the consumers' 240 registers, ptxas serialises
+// the wgmmas, and the kernel runs slower
+int pick_bn(int N, bool ln) {
+  const int widths[3] = {256, 192, 128};
+  int best = 128, waste = 1 << 30;
+  for (int bn : widths) {
+    if (ln && bn > 192) continue;
+    const int w = (bn - N % bn) % bn;
+    if (32 * w <= N) return bn;
+    if (w < waste) best = bn, waste = w;
+  }
+  return best;
+}
+
+template <int BN, bool LN>
+int run(const CUtensorMap& ta, const CUtensorMap& tw, const bf16* g, const bf16* b,
+        const float2* stats, bf16* out, int M, int N, int K, const Epilogue& epi,
+        cudaStream_t stream) {
+  constexpr int STAGE = A_BYTES + BK * BN * 2;
+  // the output (and residual) in boxes of 64 rows of 64 columns
+  CUtensorMap to, tr;
+  if (int e = make_map(&to, out, M, N, 64)) return e;
+  if (int e = make_map(&tr, epi.res ? static_cast<const void*>(epi.res) : out, M, N, 64))
+    return e;
+  const int extra = 1024 + BM * BN * 2 + BAR_BYTES + (LN ? (K + BK - 1) / BK * BK * 4 : 0);
+  int stages = (SMEM_LIMIT - extra) / STAGE;
+  if (stages > MAX_STAGES) stages = MAX_STAGES;
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = stages * STAGE + extra;
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<BN, LN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (M + BM - 1) / BM * ((N + BN - 1) / BN);
+  gemm_kernel<BN, LN><<<tiles < sms ? tiles : sms, NT, smem, stream>>>(
+      ta, tw, to, tr, g, b, stats, M, N, K, stages, epi);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool LN>
 int launch(const bf16* a, const bf16* g, const bf16* b, float2* stats, const bf16* w,
            bf16* out, int M, int N, int K, const Epilogue& epi, cudaStream_t stream) {
+  if (M == 0 || N == 0) return 0;
   if (LN) {
     ln_stats_kernel<<<(M + 7) / 8, 256, 0, stream>>>(a, stats, M, K);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<LN><<<grid, NT, SMEM_BYTES, stream>>>(a, g, b, stats, w, out, M, N, K, epi);
-  return static_cast<int>(cudaGetLastError());
+  // activations change address on every call, so the maps are made here
+  CUtensorMap ta, tw;
+  if (int e = make_map(&ta, a, M, K, BM)) return e;
+  if (int e = make_map(&tw, w, K, N, BK)) return e;
+  const int bn = pick_bn(N, LN);
+  if (bn == 128) return run<128, LN>(ta, tw, g, b, stats, out, M, N, K, epi, stream);
+  if constexpr (!LN) {
+    if (bn == 256) return run<256, LN>(ta, tw, g, b, stats, out, M, N, K, epi, stream);
+  }
+  return run<192, LN>(ta, tw, g, b, stats, out, M, N, K, epi, stream);
 }
 
 }  // namespace

@@ -39,7 +39,18 @@ def _assert_close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("b,sp,k,n", [(1, 40, 64, 136), (3, 736, 1152, 384), (2, 24, 200, 8)])
+# Shapes at the GEMM tiles' edges: M not a multiple of the 128-row tile,
+# K not a multiple of the 64-deep stage (200, 1160), N of 8, 136 and 1160
+# (ragged against every tile width), and the main path's widths (1152 with
+# 192-wide tiles, 2304, 3840 and 4352 with 256-wide ones) at B = 2 x SP 736.
+GEMM_MAIN_N = [(2, 736, 1152, n) for n in (1152, 2304, 3840, 4352)]
+
+
+@pytest.mark.parametrize(
+    "b,sp,k,n",
+    [(1, 40, 64, 136), (3, 736, 1152, 384), (2, 24, 200, 8), (1, 300, 1160, 1160),
+     (1, 77, 200, 136), *GEMM_MAIN_N],
+)
 @pytest.mark.parametrize("act", [None, "gelu"])
 def test_ln_matmul_kernel(gen, b, sp, k, n, act):
     x, g, be = _rn(gen, b, sp, k), _rn(gen, k, std=0.1, mean=1.0), _rn(gen, k, std=0.1)
@@ -50,8 +61,12 @@ def test_ln_matmul_kernel(gen, b, sp, k, n, act):
     _assert_close(got, fused.ln_matmul_plain(x, g, be, w, bias, act=act), 0.05)
 
 
-def test_ln_matmul_kernel_key_mask(gen):
-    b, sp, n_valid, h, c, d, k = 2, 48, 37, 4, 24, 16, 64
+@pytest.mark.parametrize(
+    "b,sp,n_valid,h,c,d,k",
+    [(2, 48, 37, 4, 24, 16, 64), (2, 736, 729, 16, 80, 72, 1152)],
+    ids=["small", "so400m"],
+)
+def test_ln_matmul_kernel_key_mask(gen, b, sp, n_valid, h, c, d, k):
     x, g, be = _rn(gen, b, sp, k), _rn(gen, k, mean=1.0, std=0.1), _rn(gen, k)
     w, bias = _rn(gen, k, 3 * h * c, std=k**-0.5), _rn(gen, 3 * h * c)
     km = (n_valid, h, c, d)
@@ -62,14 +77,18 @@ def test_ln_matmul_kernel_key_mask(gen):
     _assert_close(got, want, 0.05)
 
 
-@pytest.mark.parametrize("b,sp,k,n", [(1, 40, 64, 136), (2, 736, 1152, 1152)])
+@pytest.mark.parametrize(
+    "b,sp,k,n",
+    [(1, 40, 64, 136), (2, 736, 1152, 1152), (2, 736, 4352, 1152), (1, 300, 200, 8),
+     (1, 100, 1160, 1160), *GEMM_MAIN_N[1:]],
+)
 def test_matmul_residual_kernel(gen, b, sp, k, n):
     x, w, bias, res = _rn(gen, b, sp, k), _rn(gen, k, n, std=k**-0.5), _rn(gen, n), _rn(gen, b, sp, n)
     _assert_close(fused.matmul_residual(x, w, bias, res), fused.matmul_residual_plain(x, w, bias, res), 0.05)
 
 
-def test_ln_mlp_residual_kernel(gen):
-    b, sp, d, m = 2, 50, 128, 200
+@pytest.mark.parametrize("b,sp,d,m", [(2, 50, 128, 200), (1, 300, 200, 136), (2, 736, 1152, 4304)])
+def test_ln_mlp_residual_kernel(gen, b, sp, d, m):
     x, g, be = _rn(gen, b, sp, d), _rn(gen, d, mean=1.0, std=0.1), _rn(gen, d)
     w1, b1 = _rn(gen, d, m, std=d**-0.5), _rn(gen, m)
     w2, b2 = _rn(gen, m, d, std=m**-0.5), _rn(gen, d)
