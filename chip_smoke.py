@@ -5,6 +5,9 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --fat-bench [ROOT]`` times the fat attention
+kernel alone (see ``fat_bench``), for an A/B of two checkouts.
+
 Phases, in order; any failure exits non-zero with no result line:
 
 1. Device: the card's name and power limit (nvidia-smi), TF32 off.
@@ -13,7 +16,9 @@ Phases, in order; any failure exits non-zero with no result line:
    card at SigLIP SO400M/14@384 shapes with B=2 and again with B=128
    (stated tolerances), then timed at B=128 (CUDA events, median) beside
    its plain version, one PyTorch library call for the same function,
-   and its bound, with its TFLOP/s and share of the bf16 peak;
+   and its bound, with its TFLOP/s and share of the bf16 peak (the fat
+   attention's bound also counts its exponentials, B * H * SP^2 at 16 a
+   clock on each SM, and reports them apart);
    ``ln_mlp_residual``'s two launches (LN + fc1 + gelu, fc2 + residual)
    are checked and timed apart as well. The image kernels run at the image tower's shapes; the
    fused attention kernel at the text tower's (B, 64, 16, 72), in all
@@ -111,6 +116,9 @@ CARD, PEAK_FLOPS, PEAK_BW = "H100 80GB HBM3", 989e12, 3.35e12
 # Shared-memory lookups a second: 32 banks of one 4-byte word a clock on
 # each of 132 SMs at the 1.98 GHz boost clock (the ADC kernel's operations)
 PEAK_SMEM_WORDS = 32 * 132 * 1.98e9
+# Exponentials a second: 16 a clock in each SM's special-function units, at
+# the same clock (the fat attention's second bound, beside its products)
+PEAK_EXP = 16 * 132 * 1.98e9
 
 B_CHECK, B_TIME = 2, 128
 CHECK_TOL = 0.05  # rtol = atol for the GEMM kernels (tests/test_fused.py)
@@ -681,6 +689,97 @@ def service(engine, dev, reset_counts, launch_counts, check_counts,
     }
 
 
+def fat_rows(attention, qkvf, n_heads: int, head_dim: int, s: int) -> dict:
+    """The fat attention's two rows over one packed (B, SP, 3*H*C) qkvf:
+    name -> (kernel call, plain call, library call, flops, bytes,
+    tolerance, valid rows). The library call is SDPA with the key mask
+    over each head's head_dim columns at scale 1 (q comes pre-scaled),
+    the same function. Flops: Q.K^T sums all C columns;
+    of P.V's, out = O[:, :d] / O[:, d] needs d + 1."""
+    import torch
+    import torch.nn.functional as F
+
+    b, sp, hc3 = qkvf.shape
+    hc = hc3 // 3
+    c = hc // n_heads
+    heads = qkvf.view(b, sp, 3, n_heads, c)[..., :head_dim]
+    qh, kh, vh = (heads[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+    qf, kf, vf = (qkvf[..., i * hc : (i + 1) * hc].contiguous() for i in range(3))
+    key_ok = (torch.arange(sp, device=qkvf.device) < s)[None, None, None, :]
+    flops = 2.0 * b * n_heads * sp * sp * (c + head_dim + 1)
+    nbytes = qkvf.element_size() * (b * sp * hc3 + b * sp * n_heads * head_dim)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok, scale=1.0)
+
+    return {
+        "fat_vit_mha_packed": (
+            lambda: attention.fat_vit_mha_packed(qkvf, n_heads, head_dim),
+            lambda: attention.fat_vit_mha_packed_plain(qkvf, n_heads, head_dim),
+            library, flops, nbytes, ATTN_TOL, s,
+        ),
+        # the unpacked wrapper: the same kernel over three separate arrays
+        "fat_vit_mha": (
+            lambda: attention.fat_vit_mha(qf, kf, vf, n_heads, head_dim),
+            lambda: attention.fat_vit_mha_plain(qf, kf, vf, n_heads, head_dim),
+            library, flops, nbytes, ATTN_TOL, s,
+        ),
+    }
+
+
+def fat_bench(root: str) -> int:
+    """``python3 chip_smoke.py --fat-bench [ROOT]``: the fat attention
+    alone, from the package under ROOT (this checkout by default), at the
+    image tower's shape with B = 128 beside SDPA, after a check against
+    the plain version at B = 2; one JSON line, then the card's name and
+    power limit. The input is a packed qkvf as the QKV projection emits
+    it (q pre-scaled with its constant 1, k's constant -1e30 on pad rows,
+    v's constant 1). For an A/B in one call, run it on the parent's
+    checkout and on this one in turn: parent, change, change, parent."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    sys.path.insert(0, os.path.abspath(root))
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.ops import attention
+
+    cfg = siglip.SO400M_14_384
+    h, dh, s = cfg.num_heads, cfg.head_dim, cfg.num_patches
+    sp, c = (s + 15) // 16 * 16, attention.fat_width(cfg.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def packed(b):
+        f = torch.randn((b, sp, 3, h, c), generator=gen, device="cuda")
+        f[..., dh:] = 0
+        f[:, :, 0, :, :dh] *= dh**-0.5
+        f[:, :, 0, :, dh] = 1
+        f[:, s:, 1] = 0
+        f[:, s:, 1, :, dh] = -1e30
+        f[:, :, 2, :, dh] = 1
+        return f.reshape(b, sp, 3 * h * c).to(torch.bfloat16)
+
+    out = {"root": os.path.abspath(root), "b": B_TIME}
+    for name, (kern, plain, _lib, _f, _n, tol, rows) in fat_rows(attention, packed(B_CHECK), h, dh, s).items():
+        err, _ = compare(kern(), plain(), tol, rows)
+        if not err <= tol:
+            fail(f"{name} disagrees with its plain version at B={B_CHECK}: max_abs_err {err}")
+        out[f"{name}_max_abs_err_b{B_CHECK}"] = err
+    big = fat_rows(attention, packed(B_TIME), h, dh, s)
+    flops, nbytes = big["fat_vit_mha_packed"][3:5]
+    exp_ms = B_TIME * h * sp * sp / PEAK_EXP * 1e3
+    out["bounds_ms"] = {"products": flops / PEAK_FLOPS * 1e3, "exponentials": exp_ms,
+                        "bytes": nbytes / PEAK_BW * 1e3}
+    for name, fn in (("fat_vit_mha_packed", big["fat_vit_mha_packed"][0]),
+                     ("fat_vit_mha", big["fat_vit_mha"][0]),
+                     ("sdpa", big["fat_vit_mha"][2])):
+        ms = time_ms(fn, reps=20)
+        out[name] = {"ms": ms, "tflops": flops / ms / 1e9, "peak_share": flops / ms * 1e3 / PEAK_FLOPS}
+    print(json.dumps(out), flush=True)
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -763,11 +862,6 @@ def main() -> int:
         m = b * SP
         h = fused.ln_matmul_plain(x, g1, be1, w1, b1, act="gelu")  # fc2's input
         x2 = x.reshape(m, D)
-        qh = qkvf[..., :HC].reshape(b, SP, H, C)[..., :DH].permute(0, 2, 1, 3).contiguous()
-        kh = qkvf[..., HC : 2 * HC].reshape(b, SP, H, C)[..., :DH].permute(0, 2, 1, 3).contiguous()
-        vh = qkvf[..., 2 * HC :].reshape(b, SP, H, C)[..., :DH].permute(0, 2, 1, 3).contiguous()
-        qf, kf, vf = (qkvf[..., i * HC : (i + 1) * HC].contiguous() for i in range(3))
-        key_ok = (torch.arange(SP, device=dev) < S)[None, None, None, :]
         el = 2  # bytes per bf16
         return {
             "ln_matmul": (
@@ -786,23 +880,7 @@ def main() -> int:
                 el * (m * D + D * 2 * D + m * 2 * D + 2 * D + 2 * D),
                 CHECK_TOL, None,
             ),
-            "fat_vit_mha_packed": (
-                lambda: attention.fat_vit_mha_packed(qkvf, H, DH),
-                lambda: attention.fat_vit_mha_packed_plain(qkvf, H, DH),
-                lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok),
-                4.0 * b * H * SP * SP * C,
-                el * (m * 3 * HC + m * H * DH),
-                ATTN_TOL, S,
-            ),
-            # the unpacked wrapper: the same kernel over three separate arrays
-            "fat_vit_mha": (
-                lambda: attention.fat_vit_mha(qf, kf, vf, H, DH),
-                lambda: attention.fat_vit_mha_plain(qf, kf, vf, H, DH),
-                lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok),
-                4.0 * b * H * SP * SP * C,
-                el * (m * 3 * HC + m * H * DH),
-                ATTN_TOL, S,
-            ),
+            **fat_rows(attention, qkvf, H, DH, S),
             "matmul_residual": (
                 lambda: fused.matmul_residual(attn_out, attn_p["o"]["w"], attn_p["o"]["b"], x),
                 lambda: fused.matmul_residual_plain(attn_out, attn_p["o"]["w"], attn_p["o"]["b"], x),
@@ -914,6 +992,11 @@ def main() -> int:
         t_p = time_ms(plain, reps=3, inner=inner)
         t_l = time_ms(lib, reps=10, inner=inner)
         t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        if name.startswith("fat_vit_mha"):
+            # B * H * SP^2 scores, one exponential each: operations of the
+            # special-function units, beside the products' on the tensor cores
+            results[name]["exp_bound_ms"] = B_TIME * H * SP * SP / PEAK_EXP * 1e3
+            t_ops = max(t_ops, results[name]["exp_bound_ms"])
         results[name].update(
             ms=t_k, plain_ms=t_p, library_ms=t_l,
             bound_ms=max(t_ops, t_bytes),
@@ -925,6 +1008,9 @@ def main() -> int:
             f"library {t_l:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
             f"({results[name]['bound_by']}), {flops / t_k / 1e9:.1f} TFLOP/s = "
             f"{results[name]['peak_share']:.1%} of the bf16 peak")
+        if name.startswith("fat_vit_mha"):
+            log(f"  {name}: products' bound {flops / peak_flops * 1e3:.3f} ms, "
+                f"exponentials' {results[name]['exp_bound_ms']:.3f} ms")
     del big, kern, plain, lib  # the closures hold the B=128 inputs
     # ln_matmul's other route, measured beside it and run by no path: the
     # LayerNorm written out first (F.layer_norm into a bf16 copy that the
@@ -980,14 +1066,15 @@ def main() -> int:
 
     def library():
         o = F.scaled_dot_product_attention(qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
-                                           attn_mask=key_ok)
+                                           attn_mask=key_ok, scale=1.0)
         return torch.addmm(x2, o.transpose(1, 2).reshape(m, HD), wo)
 
     t_k = time_ms(kern, reps=10)
     t_p = time_ms(plain, reps=3)
     t_c = time_ms(composed, reps=10)
     t_l = time_ms(library, reps=10)
-    flops = 4.0 * B_TIME * H * SP * SP * C + 2.0 * m * HD * D
+    # Q.K^T over C columns, P.V over the DH + 1 the output reads, Wo
+    flops = 2.0 * B_TIME * H * SP * SP * (C + DH + 1) + 2.0 * m * HD * D
     nbytes = 2 * (m * 3 * HC + 2 * m * D + HD * D + D)
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     proj.update(ms=t_k, plain_ms=t_p, composed_ms=t_c, library_ms=t_l,
@@ -1461,8 +1548,9 @@ def main() -> int:
                 e[part] = {k: results[f"ln_mlp_residual[{part}]"][k] for k in keys}
         if name == "fat_vit_mha_packed":
             # fat_vit_mha (attention.py:321): the same kernel, other strides
+            e["exp_bound_ms"] = results[name]["exp_bound_ms"]
             e["unpacked"] = {"replaces": "meme_search_engine_tpu/ops/attention.py:321",
-                             **{k: results["fat_vit_mha"][k] for k in keys}}
+                             **{k: results["fat_vit_mha"][k] for k in keys + ("exp_bound_ms",)}}
         if name == "fused_mha":
             e.update({k: v for k, v in results[name].items() if k.startswith("max_abs_err_")})
         kernels.append(e)
@@ -1505,4 +1593,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fat-bench"]:
+        sys.exit(fat_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     sys.exit(main())

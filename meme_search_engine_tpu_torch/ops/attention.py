@@ -45,6 +45,8 @@ __all__ = [
     "fused_mha",
     "fused_mha_plain",
     "fat_width",
+    "kernel_width",
+    "fat_pad",
     "fat_vit_mha",
     "fat_vit_mha_packed",
     "fat_vit_mha_plain",
@@ -230,16 +232,27 @@ def fat_vit_mha_packed_plain(qkvf, n_heads: int, head_dim: int) -> torch.Tensor:
     )
 
 
+def kernel_width(head_dim: int) -> int:
+    """The per-head width the fat kernel reads: ``fat_width`` padded to
+    16, the bf16 MMA's k-step (80 at SO400M, where nothing is padded)."""
+    return (fat_width(head_dim) + 15) // 16 * 16
+
+
+def fat_pad(x: torch.Tensor, n_heads: int, width: int, padded: int) -> torch.Tensor:
+    """(B, SP, n_heads*width) -> (B, SP, n_heads*padded): each head's
+    ``width`` columns, then zeros. The kernel reads 16-column boxes at
+    h*C, which at the tiny fat widths (8, 24) would reach into the next
+    head; it reads this copy instead. Zero columns add nothing to Q.K^T
+    or P.V."""
+    b, sp, _ = x.shape
+    x = F.pad(x.reshape(b, sp, n_heads, width), (0, padded - width))
+    return x.reshape(b, sp, n_heads * padded)
+
+
 def _launch(q, k, v, row_stride, batch_stride, b, sp, n_heads, head_dim, device):
-    c = fat_width(head_dim)
-    if (c + 15) // 16 * 16 not in KERNEL_FAT_WIDTHS:
-        raise ValueError(
-            f"fat width {c} (head_dim {head_dim}) is not one the kernel is "
-            f"compiled for: {KERNEL_FAT_WIDTHS} after padding to 16"
-        )
     out = torch.empty((b, sp, n_heads * head_dim), dtype=torch.bfloat16, device=device)
     err = _build.library("fat_attention").mse_fat_attention(
-        q, k, v, out.data_ptr(), b, sp, n_heads, c, head_dim,
+        q, k, v, out.data_ptr(), b, sp, n_heads, kernel_width(head_dim), head_dim,
         row_stride[0], row_stride[1], row_stride[2],
         batch_stride[0], batch_stride[1], batch_stride[2],
         _build.stream_ptr(device),
@@ -249,6 +262,14 @@ def _launch(q, k, v, row_stride, batch_stride, b, sp, n_heads, head_dim, device)
     return out
 
 
+def _check_width(head_dim: int) -> None:
+    if kernel_width(head_dim) not in KERNEL_FAT_WIDTHS:
+        raise ValueError(
+            f"fat width {fat_width(head_dim)} (head_dim {head_dim}) is not one the "
+            f"kernel is compiled for: {KERNEL_FAT_WIDTHS} after padding to 16"
+        )
+
+
 def fat_vit_mha(
     qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, n_heads: int, head_dim: int
 ) -> torch.Tensor:
@@ -256,30 +277,40 @@ def fat_vit_mha(
     if _on_cpu(qf, kf, vf):
         return fat_vit_mha_plain(qf, kf, vf, n_heads, head_dim)
     b, sp, hc = qf.shape
-    if hc != n_heads * fat_width(head_dim):
+    c, cp = fat_width(head_dim), kernel_width(head_dim)
+    if hc != n_heads * c:
         raise ValueError(f"width {hc} != n_heads * fat_width({head_dim})")
+    _check_width(head_dim)
     for name, t in (("qf", qf), ("kf", kf), ("vf", vf)):
         _check(name, t, (b, sp, hc))
+    if cp != c:
+        qf, kf, vf = (fat_pad(t, n_heads, c, cp) for t in (qf, kf, vf))
+    hcp = n_heads * cp
     return _launch(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-        (hc, hc, hc), (sp * hc,) * 3, b, sp, n_heads, head_dim, qf.device,
+        (hcp,) * 3, (sp * hcp,) * 3, b, sp, n_heads, head_dim, qf.device,
     )
 
 
 def fat_vit_mha_packed(qkvf: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     """:func:`fat_vit_mha` over one packed (B, SP, 3*H*C) [qf | kf | vf]
-    array, read in place through strides (no split copies)."""
+    array, read in place through strides (no split copies; at the tiny
+    fat widths the kernel reads a :func:`fat_pad` copy)."""
     if _on_cpu(qkvf):
         return fat_vit_mha_packed_plain(qkvf, n_heads, head_dim)
     b, sp, hc3 = qkvf.shape
-    hc = n_heads * fat_width(head_dim)
-    if hc3 != 3 * hc:
+    c, cp = fat_width(head_dim), kernel_width(head_dim)
+    if hc3 != 3 * n_heads * c:
         raise ValueError(f"width {hc3} != 3 * n_heads * fat_width({head_dim})")
-    _check("qkvf", qkvf, (b, sp, 3 * hc))
+    _check_width(head_dim)
+    _check("qkvf", qkvf, (b, sp, hc3))
+    if cp != c:
+        qkvf = fat_pad(qkvf, 3 * n_heads, c, cp)
+    hcp = n_heads * cp
     base, el = qkvf.data_ptr(), qkvf.element_size()
     return _launch(
-        base, base + hc * el, base + 2 * hc * el,
-        (3 * hc,) * 3, (sp * 3 * hc,) * 3, b, sp, n_heads, head_dim, qkvf.device,
+        base, base + hcp * el, base + 2 * hcp * el,
+        (3 * hcp,) * 3, (sp * 3 * hcp,) * 3, b, sp, n_heads, head_dim, qkvf.device,
     )
 
 
@@ -321,11 +352,7 @@ def fat_vit_mha_packed_proj(
     hd, dm = n_heads * head_dim, wo.shape[1]
     if hc3 != 3 * n_heads * c:
         raise ValueError(f"width {hc3} != 3 * n_heads * fat_width({head_dim})")
-    if (c + 15) // 16 * 16 not in KERNEL_FAT_WIDTHS:
-        raise ValueError(
-            f"fat width {c} (head_dim {head_dim}) is not one the kernel is "
-            f"compiled for: {KERNEL_FAT_WIDTHS} after padding to 16"
-        )
+    _check_width(head_dim)
     if hd % 16 or hd > PROJ_MAX_HD or dm % 8:
         raise ValueError(
             f"kernel needs H*head_dim a multiple of 16 up to {PROJ_MAX_HD} and "

@@ -1,6 +1,7 @@
-// Device code shared by the fat-layout attention kernels (sm_90a):
-// fat_attention.cu (attention alone) and fat_attention_proj.cu (attention,
-// then the o-projection and the residual in the same block).
+// Device code of the fused fat-layout attention + o-projection kernel
+// (fat_attention_proj.cu, sm_90a): attention, then the o-projection and
+// the residual in the same block. It serves that kernel alone;
+// fat_attention.cu (attention alone) is a wgmma + TMA kernel of its own.
 //
 // Fat layout: each head owns C = fat_width(d) columns, d features plus a
 // constant column at index d. q is pre-scaled by 1/sqrt(d) and its

@@ -7,7 +7,10 @@ JAX package's attention on the same numpy inputs.
   dispatch.
 - Fat-layout attention: the JAX fat Pallas kernel (interpret mode) at
   the tiny test geometry and at SO400M's head geometry; valid rows only,
-  atol 2e-2, as in tests/test_attention.py.
+  atol 2e-2, as in tests/test_attention.py. Also the zero-padded layout
+  the card kernel reads at the tiny fat widths (``fat_pad``), attended
+  with the plain version's cast points, against the unpadded plain
+  version and the JAX kernel.
 """
 
 import jax.numpy as jnp
@@ -63,6 +66,55 @@ def test_fat_vit_mha_matches_jax(b, sp, n_valid, h, d):
     )
     got = ta.fat_vit_mha(*map(tensor_from_numpy, (q, k, v)), h, d)
     np.testing.assert_allclose(got.float().numpy()[:, :n_valid], want[:, :n_valid], atol=2e-2)
+
+
+def _attend_padded(qf, kf, vf, h, d, cp):
+    """The plain fat attention (cast points of fat_vit_mha_plain) over a
+    layout whose heads are ``cp`` columns wide: the ones the kernel reads."""
+    b, sp, _ = qf.shape
+    q, k, v = (t.reshape(b, sp, h, cp).permute(0, 2, 1, 3).float() for t in (qf, kf, vf))
+    s = q @ k.transpose(-1, -2)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+    o = p @ v
+    o = o[..., :d] / o[..., d : d + 1]
+    return o.permute(0, 2, 1, 3).reshape(b, sp, h * d).to(qf.dtype)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("b,sp,n_valid,h,d", GEOMETRIES)
+def test_fat_pad_layout_gives_the_same_attention(b, sp, n_valid, h, d, packed):
+    """The layout the card kernel reads (``fat_pad``: each head's
+    fat_width(d) columns, then zeros up to kernel_width(d)), attended with
+    the plain version's cast points, equals the unpadded plain result up
+    to one bf16 rounding (rtol = atol = 2**-7: the zero columns change
+    only the fp32 sums' order) and the JAX kernel in interpret mode (valid
+    rows, atol 2e-2)."""
+    f = _packed(np.random.default_rng(3), b, sp, n_valid, h, d)
+    c, cp = ta.fat_width(d), ta.kernel_width(d)
+    assert cp % 16 == 0 and cp - c < 16
+    x = tensor_from_numpy(f)
+    padded = ta.fat_pad(x, 3 * h, c, cp)
+    heads = padded.reshape(b, sp, 3, h, cp)
+    assert padded.shape == (b, sp, 3 * h * cp) and padded.dtype == torch.bfloat16
+    assert torch.equal(heads[..., :c], x.reshape(b, sp, 3, h, c))
+    assert not heads[..., c:].any()
+    hc, hcp = h * c, h * cp
+    if packed:
+        q, k, v = (padded[..., i * hcp : (i + 1) * hcp] for i in range(3))
+        got = _attend_padded(q, k, v, h, d, cp)
+        unpadded = ta.fat_vit_mha_packed_plain(x, h, d)
+        want = ja.fat_vit_mha_packed(jnp.asarray(f), h, d, nq=2, interpret=True)
+    else:
+        q, k, v = (x[..., i * hc : (i + 1) * hc] for i in range(3))
+        got = _attend_padded(*(ta.fat_pad(t, h, c, cp) for t in (q, k, v)), h, d, cp)
+        unpadded = ta.fat_vit_mha_plain(q, k, v, h, d)
+        want = ja.fat_vit_mha(*(jnp.asarray(np.ascontiguousarray(f[..., i * hc : (i + 1) * hc]))
+                                for i in range(3)), h, d, nq=2, interpret=True)
+    assert got.shape == (b, sp, h * d)
+    torch.testing.assert_close(got.float(), unpadded.float(), rtol=2**-7, atol=2**-7)
+    np.testing.assert_allclose(
+        got.float().numpy()[:, :n_valid], np.asarray(want, np.float32)[:, :n_valid], atol=2e-2
+    )
 
 
 def test_fat_vit_mha_matches_masked_softmax():

@@ -99,16 +99,34 @@ def test_ln_mlp_residual_kernel(gen, b, sp, d, m):
     _assert_close(got, fused.ln_mlp_residual_plain(x, g, be, w1, b1, w2, b2), 0.05)
 
 
-@pytest.mark.parametrize(
-    "b,sp,n_valid,h,d",
-    [(2, 16, 11, 16, 7), (2, 16, 4, 4, 16), (2, 100, 90, 4, 72), (2, 736, 729, 16, 72)],
-    ids=["tiny_fat", "tiny", "ragged", "so400m"],
-)
-def test_fat_attention_kernel(gen, b, sp, n_valid, h, d):
+# (B, SP, n_valid, H, d, key ramp): the tiny fat and tiny widths (fat
+# widths 8 and 24, copied to a zero-padded 16 and 32 by the wrapper), a
+# ragged SP, SO400M; then an SP whose last 128-key tile holds one row, few
+# valid keys (whole key tiles of pad rows), keys scaled up along the
+# sequence (scores far apart: the row max grows from tile to tile and O is
+# rescaled), a grid of 4 tiles (fewer than the card's SMs), and the tiny
+# fat width over several key tiles
+FAT_GEOMETRIES = [
+    pytest.param(2, 16, 11, 16, 7, False, id="tiny_fat"),
+    pytest.param(2, 16, 4, 4, 16, False, id="tiny"),
+    pytest.param(2, 100, 90, 4, 72, False, id="ragged"),
+    pytest.param(2, 736, 729, 16, 72, False, id="so400m"),
+    pytest.param(2, 257, 250, 4, 72, False, id="last_key_tile_one_row"),
+    pytest.param(2, 736, 40, 4, 72, False, id="mostly_pad_keys"),
+    pytest.param(2, 736, 729, 4, 72, True, id="scores_far_apart"),
+    pytest.param(1, 200, 190, 2, 72, False, id="grid_under_the_sms"),
+    pytest.param(1, 300, 280, 16, 7, False, id="tiny_fat_key_tiles"),
+]
+
+
+@pytest.mark.parametrize("b,sp,n_valid,h,d,ramp", FAT_GEOMETRIES)
+def test_fat_attention_kernel(gen, b, sp, n_valid, h, d, ramp):
     c = attention.fat_width(d)
     f = torch.randn((b, sp, 3, h, c), generator=gen, device="cuda")
     f[..., d:] = 0
     f[:, :, 0, :, :d] *= d**-0.5
+    if ramp:  # key j scaled by 0.5 .. 6: scores grow along the keys
+        f[:, :, 1, :, :d] *= torch.linspace(0.5, 6.0, sp, device="cuda")[None, :, None, None]
     f[:, :, 0, :, d] = 1
     f[:, n_valid:, 1] = 0
     f[:, n_valid:, 1, :, d] = -1e30
