@@ -6,7 +6,9 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --fat-bench [ROOT]`` times the fat attention
-kernel alone (see ``fat_bench``), for an A/B of two checkouts.
+kernel alone (see ``fat_bench``), for an A/B of two checkouts;
+``python3 chip_smoke.py --gather-bench`` the gathered dots alone (see
+``gather_bench``).
 
 Phases, in order; any failure exits non-zero with no result line:
 
@@ -36,7 +38,14 @@ Phases, in order; any failure exits non-zero with no result line:
    1e6 x 1152 bf16 corpus (past 2^31 bytes), at D = 32 and 72 in int8, at
    (3, 50) and (1, 1) ids, with ids out of range (clamped) and with no ids
    (no launch); then timed at the hop and prune shapes beside its plain
-   version, ``torch.index_select`` and its bound. The fused attention +
+   version, ``torch.index_select`` and its bound. The gathered dots
+   (``gathered_dots``): ``gather_dot`` and ``gather_gram`` against their
+   plain versions (1e-5 on bf16 rows of unit vectors, exact in int8) at
+   the hop and prune shapes and the same edges, ragged C (7, 129, 750) and
+   exact symmetry for the Gram; then timed at the hop (dot) and prune
+   (Gram) shapes beside their plain versions, the route each replaces in
+   the build (gather_rows, .float(), fp32 bmm), ``torch.index_select`` +
+   ``torch.bmm(out_dtype=torch.float32)`` and the bound. The fused attention +
    o-projection kernel (``fat_vit_mha_packed_proj``, which no main path
    runs) on the image tower's layer shapes and activations at B=2 and
    B=128, against its plain version and against kernels 7 then 2 on the
@@ -85,12 +94,15 @@ Phases, in order; any failure exits non-zero with no result line:
      and recall@10 >= 0.80 (ann_bench's protocol over 512 base rows).
      One round's greedy search runs again under torch.profiler: the
      card's time a hop against the build's wall time a hop.
+     One prune of that round's pools is profiled the same way.
      64 nodes searched and pruned on the card must agree with the CPU:
      in bf16, pool ids on >= 99% and scores within 1e-5, and every pruned
      row that differs must hold a decision within 1e-5 of its threshold;
      in int8, whose sums are exact integers, everything must be equal.
-     ``gather_rows`` must launch once per hop, prune and re-prune chunk,
-     and no other kernel; no earlier path may launch it.
+     ``gather_dot`` must launch once per hop, round (the merge of the
+     existing neighbours), re-prune chunk and stitch, ``gather_gram`` once
+     per prune (re-prunes included), ``gather_rows`` and every other kernel
+     never; no earlier path may launch either.
 5. One JSON line with every kernel's numbers, one with the quantizer
    path's, one with the graph build's, one with the service's, then the
    card's name and power limit, then ``{"ok": true, "device": {...}}`` as
@@ -129,6 +141,12 @@ NEAR_TIE = 1e-4  # a code may differ from the CPU's only within this of its best
 # the row gather at the shard build's shapes: a corpus of about the shard's
 # node count, the hop's (batch, expand x R) ids and the prune's (batch, maxc)
 GATHER_N, GATHER_HOP, GATHER_PRUNE = 48_643, (1024, 128), (1024, 750)
+# the gathered dots against their plain versions, with bf16 rows of unit
+# vectors: fp32 sums of the same exact products in another order
+GATHER_DOT_TOL = 1e-5
+# fp32 FMAs a second on the H100 SXM's CUDA cores (data sheet), the bound
+# of gather_dot's operations
+PEAK_FP32 = 67e12
 # the small-scale service: a personal library of about 1e5 items, some of
 # them images embedded by the engine; a search answer may differ from the
 # CPU's exact top-k only by near ties within this
@@ -208,6 +226,166 @@ def hier_corpus(n: int, d: int, device, seed: int = 0, chunk: int = 100_000):
     return x
 
 
+def gathered_dots(dev, gen, d: int = 1152, n_huge: int = 1_000_000) -> dict:
+    """Phase 3 for the two kernels that take the shard build's gathered rows
+    straight into their products: ``gather_dot`` (the hop's and the
+    re-prune's dots) and ``gather_gram`` (the prune's candidate Gram).
+    Each is held against its plain version (rtol = atol = GATHER_DOT_TOL
+    with bf16 rows of unit vectors, as the build holds them; exactly with
+    int8 rows, whose sums are integers below 2^24) at the build's shapes and
+    its edges, with exactly one launch a call and none for no ids; the Gram
+    must come out exactly symmetric. Then each is timed at its build shape
+    (the hop, the prune) beside its plain version, the route it replaces
+    in the build (``gather_rows``, ``.float()``, an fp32 ``torch.bmm``,
+    timed as a whole), the library composition (``torch.index_select``
+    then ``torch.bmm(..., out_dtype=torch.float32)`` on bf16) and its bound.
+    Returns the two ``kernels`` entries' numbers."""
+    import torch
+
+    from meme_search_engine_tpu_torch.ops import gather
+
+    def unit(n):
+        x = torch.randn((n, d), generator=gen, device=dev)
+        return (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+    def ids(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    gu = unit(GATHER_N)
+    gx8 = torch.randint(-127, 128, (GATHER_N, d), generator=gen, device=dev, dtype=torch.int8)
+    huge = torch.zeros((n_huge, d), device=dev, dtype=torch.bfloat16)  # 2.3 GB, past 2^31 B
+    huge[-1000:] = unit(1000)
+    hop_ids, prune_ids = ids(GATHER_HOP, 0, GATHER_N), ids(GATHER_PRUNE, 0, GATHER_N)
+    wild = ids((64, 50), -100_000, GATHER_N + 100_000)
+    wild[0, :2] = torch.tensor([-(2**31), 2**31 - 1], dtype=torch.int32)
+    # (corpus, ids); gather_dot's queries are rows of the corpus, as the
+    # build's are
+    cases = {
+        "hop_bf16": (gu, hop_ids),
+        "prune_bf16": (gu, prune_ids),
+        "hop_int8": (gx8, hop_ids),
+        "prune_int8": (gx8, prune_ids[:64]),
+        "64bit_offsets": (huge, ids((64, 100), n_huge - 1000, n_huge)),
+        "d32_int8": (gx8[:, :32].contiguous(), ids((64, 50), 0, GATHER_N)),
+        "d72_int8": (gx8[:, :72].contiguous(), ids((64, 50), 0, GATHER_N)),
+        "c7_c129": (gu, ids((16, 129), 0, GATHER_N)),
+        "ids_3x50": (gu, ids((3, 50), 0, GATHER_N)),
+        "ids_1x1": (gu, ids((1, 1), 0, GATHER_N)),
+        "out_of_range_clamped": (gu, wild),
+        "no_ids": (gu, ids((0, 128), 0, GATHER_N)),
+    }
+    results = {k: {"max_abs_err": 0.0, "tolerance": GATHER_DOT_TOL, "checked": list(cases)}
+               for k in ("gather_dot", "gather_gram")}
+
+    def held(name, key, got, want, exact):
+        gather_launches = dict(gather.launches)
+        torch.cuda.synchronize()
+        if got.numel():
+            err, ok = compare(got, want, 0.0 if exact else GATHER_DOT_TOL)
+        else:
+            err, ok = 0.0, got.shape == want.shape
+        want_launches = {"gather_rows": 0, "gather_dot": 0, "gather_gram": 0}
+        want_launches[name] = 1 if got.numel() else 0
+        ok = ok and gather_launches == want_launches
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        log(f"check {name} {key} ids {tuple(want.shape[:2])}: max_abs_err {err:.3e} "
+            f"({'exact' if exact else f'tol {GATHER_DOT_TOL}'}), launches {gather_launches} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name} disagrees with its plain version or launched wrongly: {key}")
+
+    for key, (gv, gi) in cases.items():
+        exact = gv.dtype == torch.int8
+        q = gv[torch.randint(0, gv.shape[0], (gi.shape[0],), generator=gen, device=dev)].float()
+        gather.reset_launches()
+        got = gather.gather_dot(gv, gi, q)
+        held("gather_dot", key, got, gather.gather_dot_plain(gv, gi, q), exact)
+        if key.startswith("hop"):
+            continue  # the hop's shape is the dot's; the Gram's is the prune's
+        for gj in ((gi[:, :7], gi) if key == "c7_c129" else (gi,)):
+            gather.reset_launches()
+            got = gather.gather_gram(gv, gj)
+            held("gather_gram", f"{key} C={gj.shape[1]}", got, gather.gather_gram_plain(gv, gj), exact)
+            if not torch.equal(got, got.transpose(1, 2)):
+                fail(f"gather_gram is not exactly symmetric: {key}")
+            del got
+    del huge, wild, cases, gx8
+    torch.cuda.empty_cache()
+
+    # the times at the build's shapes
+    try:
+        torch.bmm(gu[:2, None], gu[:2, :, None], out_dtype=torch.float32)
+        has_out_dtype = True
+    except (TypeError, RuntimeError) as e:
+        has_out_dtype = False
+        log(f"library composition not timed: torch.bmm has no out_dtype here ({str(e)[:80]})")
+    row_bytes = d * gu.element_size()
+    hq = gu[torch.randint(0, GATHER_N, (GATHER_HOP[0],), generator=gen, device=dev)].float()
+    hq16 = hq.to(torch.bfloat16)  # exact: the queries are bf16 rows
+
+    def flat_rows(gi):
+        return torch.index_select(gu, 0, gi.reshape(-1)).view(*gi.shape, d)
+
+    def gram(v, **kw):
+        return torch.bmm(v, v.transpose(1, 2), **kw)
+
+    rows = {
+        "gather_dot": dict(
+            gi=hop_ids, inner=20,
+            kern=lambda: gather.gather_dot(gu, hop_ids, hq),
+            plain=lambda: gather.gather_dot_plain(gu, hop_ids, hq),
+            replaced=lambda: torch.bmm(gather.gather_rows(gu, hop_ids).float(), hq[:, :, None])[..., 0],
+            library=lambda: torch.bmm(flat_rows(hop_ids), hq16[:, :, None], out_dtype=torch.float32),
+            # fp32 FMAs on the CUDA cores, 67 TFLOP/s (the H100 SXM's fp32 peak)
+            ops=2.0 * hop_ids.numel() * d, peak_ops=PEAK_FP32,
+            out_bytes=hop_ids.numel() * 4 + hq.numel() * 4,
+        ),
+        "gather_gram": dict(
+            gi=prune_ids, inner=2,
+            kern=lambda: gather.gather_gram(gu, prune_ids),
+            plain=lambda: gather.gather_gram_plain(gu, prune_ids),
+            replaced=lambda: gram(gather.gather_rows(gu, prune_ids).float()),
+            library=lambda: gram(flat_rows(prune_ids), out_dtype=torch.float32),
+            # the symmetric Gram's distinct dots, C (C + 1) / 2 a row, on
+            # the tensor cores
+            ops=2.0 * GATHER_PRUNE[0] * d * GATHER_PRUNE[1] * (GATHER_PRUNE[1] + 1) / 2, peak_ops=PEAK_FLOPS,
+            out_bytes=GATHER_PRUNE[0] * GATHER_PRUNE[1] ** 2 * 4,
+        ),
+    }
+    for name, r in rows.items():
+        gi, inner = r["gi"], r["inner"]
+        if has_out_dtype:
+            results[name]["library_max_abs_err"] = float(
+                (r["library"]().float().reshape(-1) - r["plain"]().reshape(-1)).abs().max())
+        t_k = time_ms(r["kern"], reps=10, inner=inner)
+        t_p = time_ms(r["plain"], reps=3, inner=1)
+        t_r = time_ms(r["replaced"], reps=3, inner=1)
+        t_l = time_ms(r["library"], reps=5, inner=1) if has_out_dtype else None
+        # each distinct row read once, the ids and queries read once, the
+        # output written once
+        distinct = int(torch.unique(gi).numel())
+        nbytes = distinct * row_bytes + gi.numel() * 4 + r["out_bytes"]
+        t_bytes, t_ops = nbytes / PEAK_BW * 1e3, r["ops"] / r["peak_ops"] * 1e3
+        results[name].update({
+            "ms": t_k, "plain_ms": t_p, "replaced_route_ms": t_r, "library_ms": t_l,
+            "library_calls": ("torch.index_select + torch.bmm(out_dtype=torch.float32) on bf16, two calls"
+                              if has_out_dtype else "torch.bmm has no out_dtype on this torch"),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops, "distinct_rows": distinct,
+            "shape": list(gi.shape),
+        })
+        log(f"time {name} ids {tuple(gi.shape)} from {GATHER_N} x {d} bf16: kernel {t_k:.4f} ms, "
+            f"plain {t_p:.3f} ms, the route it "
+            f"replaces (gather_rows, .float(), fp32 bmm) {t_r:.3f} ms, "
+            f"library (index_select + bmm out_dtype fp32) "
+            + (f"{t_l:.4f} ms" if t_l is not None else "not timed")
+            + f", bound {max(t_bytes, t_ops):.4f} ms ({results[name]['bound_by']}: bytes {t_bytes:.4f}, "
+            f"operations {t_ops:.4f}; {distinct} distinct rows)")
+    del gu, hop_ids, prune_ids, hq, hq16, rows
+    torch.cuda.empty_cache()
+    return results
+
+
 def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
                 n: int = 1_000_000, d: int = 1152) -> dict:
     """The per-shard Vamana build as the JAX package's scale_bench runs it
@@ -255,7 +433,7 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
 
     stages: dict = {}
     calls: dict = {}
-    names = ("_batched_greedy_search", "_batched_robust_prune", "_insert_back_edges",
+    names = ("_batched_greedy_search", "_merge_pool", "_batched_robust_prune", "_insert_back_edges",
              "_reprune_overflow", "_score_sort_prune", "robust_stitch", "medioid_dev")
     wrapped = [(n_, timed(vamana, n_, stages, calls)) for n_ in names]
     reset_counts()
@@ -287,9 +465,14 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
         fail(f"base degree min {degrees.min()}, medioid {med}")
     if n_total > 100_000:  # build_graph checks its device mirror up to 1e5 nodes
         fail(f"shard of {n_total} nodes: build_graph skipped its device-mirror check")
-    expected = calls["hops"] + calls["_batched_robust_prune"] + calls["_score_sort_prune"]
+    # gather_dot: each hop, each round's merge of the existing neighbours
+    # (_merge_pool), each re-prune chunk's scores, and each product the
+    # stitch asked for; gather_gram: each prune, the re-prunes' included
+    expected_dot = (calls["hops"] + calls["_merge_pool"] + calls["_score_sort_prune"]
+                    + calls.get("stitch_products", 0))
     check_counts("graph", launches, {
-        "gather_rows": expected, "ln_matmul": 0, "matmul_residual": 0, "ln_mlp_residual": 0,
+        "gather_dot": expected_dot, "gather_gram": calls["_batched_robust_prune"], "gather_rows": 0,
+        "ln_matmul": 0, "matmul_residual": 0, "ln_mlp_residual": 0,
         "fat_vit_mha": 0, "fused_mha": 0, "adc_scores": 0, "fat_vit_mha_packed_proj": 0,
     }, 1)
 
@@ -348,7 +531,34 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
            else "not measured (no device events)"))
     for k, us in top:
         log(f"  {us / round_hops / 1e3:.4f} ms a hop: {k[:100]}")
-    del corpus, graph_dev, _ps, _pi, prof
+
+    # one prune of that round's pools, profiled the same way: the card's
+    # time by kernel against the build's wall time a prune
+    sat = round_nodes >= n_base
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vamana._batched_robust_prune(corpus, round_nodes.int(), _pi, _ps, cfg.alpha, cfg.query_alpha,
+                                     n_base, sat, r=r)
+        torch.cuda.synchronize()
+        prune_wall = time.perf_counter() - t0
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    prune_device = sum(by_name.values()) if on_card else None
+    prune_build_wall_ms = stages["_batched_robust_prune"] / calls["_batched_robust_prune"] * 1e3
+    profiled["prune"] = {"wall_ms": prune_wall * 1e3, "device_ops": len(on_card), "device_ms": prune_device,
+                         "build_prune_wall_ms": prune_build_wall_ms,
+                         "top_device_ms": {k[:100]: v for k, v in top}}
+    log(f"graph: one prune of that round's {batch} pools profiled: {prune_wall * 1e3:.2f} ms (profiled), "
+        f"{len(on_card)} device ops, the card busy "
+        + (f"{prune_device:.3f} ms; the build's prunes took {prune_build_wall_ms:.2f} ms of wall time "
+           f"each" if on_card else "not measured (no device events)"))
+    for k, v in top:
+        log(f"  {v:.4f} ms: {k[:100]}")
+    del corpus, graph_dev, _ps, _pi, prof, sat
 
     # the card against the CPU: 64 nodes of the finished graph through a
     # greedy search and a prune with the build's parameters, in bf16 and in
@@ -505,7 +715,7 @@ def service(engine, dev, reset_counts, launch_counts, check_counts,
         check_counts("service (images)", launch_counts(), {
             "ln_matmul": cfg.depth + 1, "matmul_residual": cfg.depth, "ln_mlp_residual": cfg.depth,
             "fat_vit_mha": cfg.depth, "fused_mha": 0, "fat_vit_mha_packed_proj": 0,
-            "adc_scores": 0, "gather_rows": 0,
+            "adc_scores": 0, "gather_rows": 0, "gather_dot": 0, "gather_gram": 0,
         }, n_img_buckets)
         srng = np.random.default_rng(6)
         syn = srng.standard_normal((n - n_images, d), dtype=np.float32)
@@ -664,7 +874,7 @@ def service(engine, dev, reset_counts, launch_counts, check_counts,
         check_counts("service (queries)", launch_counts(), {
             "fused_mha": cfg.text_depth, "ln_matmul": 0, "matmul_residual": 0,
             "ln_mlp_residual": 0, "fat_vit_mha": 0, "fat_vit_mha_packed_proj": 0,
-            "adc_scores": 0, "gather_rows": 0,
+            "adc_scores": 0, "gather_rows": 0, "gather_dot": 0, "gather_gram": 0,
         }, text_buckets)
         log(f"service: FlatIndex.search at k={DEFAULT_K}: B=1 {search_ms[1]:.3f} ms, B=16 "
             f"{search_ms[16]:.3f} ms (host clock, median of 20); its mips_topk on the card "
@@ -775,6 +985,27 @@ def fat_bench(root: str) -> int:
                      ("sdpa", big["fat_vit_mha"][2])):
         ms = time_ms(fn, reps=20)
         out[name] = {"ms": ms, "tflops": flops / ms / 1e9, "peak_share": flops / ms * 1e3 / PEAK_FLOPS}
+    print(json.dumps(out), flush=True)
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
+def gather_bench() -> int:
+    """``python3 chip_smoke.py --gather-bench``: phase 3's gathered dots
+    alone (``gathered_dots``: the checks, then the times of both kernels
+    beside what they are compared with), one JSON line, then the card's
+    name and power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    sys.path.insert(0, ROOT)
+    from meme_search_engine_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    dev = torch.device("cuda")
+    out = gathered_dots(dev, torch.Generator(device=dev).manual_seed(1234))
     print(json.dumps(out), flush=True)
     print(nvidia_smi(), flush=True)
     return 0
@@ -1218,6 +1449,7 @@ def main() -> int:
             f"{gi.numel()} written), {gi.numel() * row_bytes / t_k / 1e6:.1f} GB/s written")
     del gx, gx8, hop_ids, prune_ids, flat
     torch.cuda.empty_cache()
+    results.update(gathered_dots(dev, gen))
 
     # -- 4. main path at full width -----------------------------------------
     from meme_search_engine_tpu_torch.serving.engine import pow2_buckets
@@ -1297,6 +1529,8 @@ def main() -> int:
         "fat_vit_mha_packed_proj": 0,
         "adc_scores": 0,
         "gather_rows": 0,
+        "gather_dot": 0,
+        "gather_gram": 0,
     }, n_buckets)
     for i, imgs in enumerate(requests):
         check_embeddings(f"image request {i}", outs[i], len(imgs))
@@ -1317,6 +1551,8 @@ def main() -> int:
         "fat_vit_mha_packed_proj": 0,
         "adc_scores": 0,
         "gather_rows": 0,
+        "gather_dot": 0,
+        "gather_gram": 0,
     }, n_text_buckets)
     for i, texts in enumerate(text_requests):
         check_embeddings(f"text request {i}", text_outs[i], len(texts))
@@ -1433,14 +1669,30 @@ def main() -> int:
     def timed(owner, name, into, calls=None):
         """Wrap ``owner.name`` to add its synchronised host seconds to
         ``into[name]`` and, with ``calls``, its calls to ``calls[name]``
-        (and a greedy search's hops to ``calls["hops"]``); returns the
-        function it replaced."""
+        (a greedy search's hops to ``calls["hops"]``, the products a
+        stitch asked of ``gather_dot`` to ``calls["stitch_products"]``);
+        returns the function it replaced."""
         fn = getattr(owner, name)
 
         def wrapper(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a, **k)
+            if calls is not None and name == "robust_stitch":
+                # the stitch multiplies only when the build left base->query
+                # edges: count the products it asks for while it runs
+                dot = owner._gather.gather_dot
+
+                def counted(*da, **dk):
+                    calls["stitch_products"] = calls.get("stitch_products", 0) + 1
+                    return dot(*da, **dk)
+
+                owner._gather.gather_dot = counted
+                try:
+                    out = fn(*a, **k)
+                finally:
+                    owner._gather.gather_dot = dot
+            else:
+                out = fn(*a, **k)
             torch.cuda.synchronize()
             into[name] = into.get(name, 0.0) + time.perf_counter() - t0
             if calls is not None:
@@ -1474,7 +1726,7 @@ def main() -> int:
     check_counts("quantizer", q_counts, {
         "adc_scores": len(run.q), "ln_matmul": 0, "matmul_residual": 0,
         "ln_mlp_residual": 0, "fat_vit_mha": 0, "fused_mha": 0, "gather_rows": 0,
-        "fat_vit_mha_packed_proj": 0,
+        "gather_dot": 0, "gather_gram": 0, "fat_vit_mha_packed_proj": 0,
     }, 1)
     if len(run.q) != 64:
         fail(f"the tool scored {len(run.q)} queries, expected 64")
@@ -1570,6 +1822,16 @@ def main() -> int:
     kernels.append({"name": "gather_rows", "route": "cuda", "source": src + "gather.cu",
                     "replaces": "meme_search_engine_tpu/ops/gather.py:89",
                     "launches": graph["launches"]["gather_rows"], **results["gather_rows"]})
+    # the gather fused into the dots the JAX package runs on its rows; the
+    # times at the hop shape (gather_dot) and the prune shape (gather_gram)
+    kernels.append({"name": "gather_dot", "route": "cuda", "source": src + "gather_dot.cu",
+                    "replaces": "meme_search_engine_tpu/ops/gather.py:89 with the dots at "
+                                "meme_search_engine_tpu/index/vamana.py:237, :609, :828, :905",
+                    "launches": graph["launches"]["gather_dot"], **results["gather_dot"]})
+    kernels.append({"name": "gather_gram", "route": "cuda", "source": src + "gather_gram.cu",
+                    "replaces": "meme_search_engine_tpu/ops/gather.py:89 with the Gram at "
+                                "meme_search_engine_tpu/index/vamana.py:377",
+                    "launches": graph["launches"]["gather_gram"], **results["gather_gram"]})
     print(json.dumps({
         "kernels": kernels,
         "engine": {"batch": B_TIME, "ms": batch_ms, "images_per_s": B_TIME / batch_ms * 1e3,
@@ -1595,4 +1857,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fat-bench"]:
         sys.exit(fat_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] == ["--gather-bench"]:
+        sys.exit(gather_bench())
     sys.exit(main())

@@ -17,10 +17,10 @@ What differs in means, not in result:
 - Every top-k keeps ``lax.top_k``'s tie order (the lower index first)
   through a stable descending sort, every ``argsort`` is stable, and each
   ``lexsort`` is two stable sorts (``_lexsort``).
-- Dot products of bf16 or int8 rows upcast to fp32 first and multiply in
-  fp32 (TF32 off), as ``preferred_element_type=f32`` does in the JAX
-  package: a bf16 product would round its result to bf16 and move the
-  prune's ``alpha * dot >= score`` test.
+- Dot products of bf16 or int8 rows are fp32 sums of exact products, as
+  ``preferred_element_type=f32`` makes them in the JAX package: a bf16
+  product would round its result to bf16 and move the prune's
+  ``alpha * dot >= score`` test.
 - The seen bitmap has one more column, a sink that the slots of invalid
   candidates write to, so every write to a real column writes True. The
   JAX package redirects them to node 0 and writes ``seen | valid`` there;
@@ -32,18 +32,17 @@ What differs in means, not in result:
   Python (the JAX package's ``_force_sequential=True``); the JAX
   package's native refill is not ported.
 
-**The three row gathers** (each greedy-search hop, the robust prune's
-candidate block and the overflow re-prune) go through
-``ops.gather.gather_rows``, the hand-written CUDA kernel on a CUDA corpus,
-with no switch. The JAX package keeps its Pallas gather opt-in
-(``MSE_PALLAS_GATHER=1``) because on a v5e it lost to XLA's gather. On an
-H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md §6) the kernel took
-0.195-0.214 ms at the hop shape, (1024, 128) ids into 48,643 x 1152 bf16,
-against 0.200-0.203 ms for ``torch.index_select``, and 1.115-1.135 ms
-against 1.154-1.171 ms at the prune shape, (1024, 750) ids: a tie, where
-the TPU kernel lost. A gather is exact, so the route changes no
-result. Every other gather stays torch indexing, as it is XLA's gather in
-the JAX package on every route.
+**The gathered dots.** Wherever the JAX package gathers rows to multiply
+them (each greedy-search hop, the merge of a node's existing neighbours,
+the robust prune's candidate block, the overflow re-prune, the stitch),
+the port calls a kernel that reads the rows straight into the product, on
+every CUDA tensor, with no switch: ``ops.gather.gather_dot`` for the
+(B, K) dots of rows with their query, ``ops.gather.gather_gram`` for the
+prune's (B, C, C) candidate Gram. Neither writes the gathered (B, K, D)
+block out, which the JAX package leaves to XLA to fuse into its einsum.
+CPU tensors take their plain versions (gather, upcast, fp32 ``bmm``). Every
+other gather stays torch indexing, as it is XLA's gather in the JAX
+package on every route.
 """
 
 from __future__ import annotations
@@ -133,11 +132,6 @@ def _lexsort(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
     return o1.gather(1, o2)
 
 
-def _bdot(vecs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """(B, K, D) x (B, D) -> (B, K) fp32 dots of the rows upcast to fp32."""
-    return torch.bmm(vecs.float(), q.float()[:, :, None])[..., 0]
-
-
 def _dedupe_by_id(scores, ids):
     """Sort each row by id and mark duplicate ids (-inf, INVALID); the
     first in the row's order (the best, for a best-first row) stays."""
@@ -165,8 +159,8 @@ def _batched_greedy_search(
     """Lockstep greedy search for B queries (lib.rs:183-211 semantics).
 
     Each hop pops the best ``expand`` unvisited beam entries, gathers their
-    adjacency rows and the neighbours' vectors (``gather_rows``), scores
-    them, and merges the new ones into the (B, l) beam with one top-l.
+    adjacency rows, scores the neighbours (``gather_dot``), and merges the
+    new ones into the (B, l) beam with one top-l.
     ``base_only_mask`` rows never admit OOD query nodes. With
     ``collect_pool`` every scored neighbour is logged for the robust prune.
 
@@ -208,7 +202,7 @@ def _batched_greedy_search(
         neigh = graph[cur.long()].reshape(b, width)
         valid = neigh >= 0
         neigh_safe = torch.where(valid, neigh, 0)
-        nscores = _bdot(_gather.gather_rows(vectors, neigh_safe), qf)
+        nscores = _gather.gather_dot(vectors, neigh_safe, qf)
         valid &= not_base_only | (neigh < query_breakpoint)
         valid &= slot_ok.repeat_interleave(r, dim=1)
         neigh_long = neigh_safe.long()
@@ -289,8 +283,8 @@ def _batched_robust_prune(
 ):
     """alpha-RNG prune, ParlayANN flavour (lib.rs:227-285), batched.
 
-    All candidate-pair dots come first, as one fp32 (B, C, C) product over
-    the gathered candidate rows (``gather_rows``). Then r rounds each pick
+    All candidate-pair dots come first, as one fp32 (B, C, C) Gram of the
+    gathered candidate rows (``gather_gram``). Then r rounds each pick
     the best remaining candidate p* and suppress every candidate c with
     alpha_c * dot(c, p*) >= dot(c, p), alpha_c being query_alpha for OOD
     query candidates (lib.rs:261-265). Returns (B, r) int32, -1 padded.
@@ -300,9 +294,7 @@ def _batched_robust_prune(
     is_cand = cand_ids != INVALID
     # self-edges are never selected (p_star == p skip, lib.rs:241)
     alive = is_cand & (cand_ids != p_nodes[:, None])
-    cvecs = _gather.gather_rows(vectors, torch.where(is_cand, cand_ids, 0)).float()
-    pair = torch.bmm(cvecs, cvecs.transpose(1, 2))
-    del cvecs
+    pair = _gather.gather_gram(vectors, torch.where(is_cand, cand_ids, 0))
     alpha_c = torch.where(
         cand_ids >= query_breakpoint,
         torch.tensor(query_alpha, dtype=torch.float32, device=dev),
@@ -448,9 +440,9 @@ def build_graph(
         # merge existing out-neighbours into the candidate pool (lib.rs:301-304)
         existing = graph[batch_p]
         evalid = torch.from_numpy(existing >= 0).to(dev)
-        esafe = _long(np.where(existing >= 0, existing, 0), dev)
-        escores = _bdot(vec_dev[esafe], queries).masked_fill(~evalid, NEG_INF)
-        eids = esafe.int().masked_fill(~evalid, INVALID)
+        esafe = torch.from_numpy(np.where(existing >= 0, existing, 0).astype(np.int32)).to(dev)
+        escores = _gather.gather_dot(vec_dev, esafe, queries.float()).masked_fill(~evalid, NEG_INF)
+        eids = esafe.masked_fill(~evalid, INVALID)
         pool_ids, pool_scores = _merge_pool(pool_ids, pool_scores, eids, escores, cfg.maxc)
 
         saturate = torch.from_numpy(np.logical_or(cfg.saturate_graph, is_query_node)).to(dev)
@@ -560,12 +552,11 @@ def _reprune_overflow(vec_dev, graph, degrees, overflow_pairs, cfg, graph_dev=No
 
 
 def _score_sort_prune(vec_dev, nodes, cand, alpha, query_alpha, bp, saturate, r: int):
-    """Score candidates against their node (``gather_rows`` for the
-    candidate rows), sort best-first (score desc, id asc), prune."""
+    """Score candidates against their node (``gather_dot``), sort
+    best-first (score desc, id asc), prune."""
     valid = cand != INVALID
-    cvecs = _gather.gather_rows(vec_dev, torch.where(valid, cand, 0))
-    scores = _bdot(cvecs, vec_dev[nodes.long()]).masked_fill(~valid, NEG_INF)
-    del cvecs
+    scores = _gather.gather_dot(vec_dev, torch.where(valid, cand, 0), vec_dev[nodes.long()].float())
+    scores = scores.masked_fill(~valid, NEG_INF)
     order = _lexsort(-scores, cand)
     return _batched_robust_prune(
         vec_dev, nodes, cand.gather(1, order), scores.gather(1, order),
@@ -620,13 +611,10 @@ def robust_stitch(
     qs = edge_q[porder].astype(np.int32)
     qneigh = graph[qs]  # (P, R) query out-neighbours
     valid = qneigh >= 0
-    qsafe = np.where(valid, qneigh, 0)
-    # chunked scoring: the (P, R, D) gather at full P is O(10 GB)
-    scores = np.empty(qneigh.shape, np.float32)
-    chunk = 8192
-    for s0 in range(0, len(in_ns), chunk):
-        sl = slice(s0, min(len(in_ns), s0 + chunk))
-        scores[sl] = _bdot(vec_dev[_long(qsafe[sl], dev)], vec_dev[_long(in_ns[sl], dev)]).cpu().numpy()
+    qsafe = torch.from_numpy(np.where(valid, qneigh, 0).astype(np.int32)).to(dev)
+    # one (P, R) product: the kernel never holds the (P, R, D) rows, and
+    # the plain version takes them in chunks
+    scores = _gather.gather_dot(vec_dev, qsafe, vec_dev[_long(in_ns, dev)].float()).cpu().numpy()
     scores[~valid] = -np.inf
     order = np.argsort(-scores, axis=1)
     cand_sorted = np.take_along_axis(qneigh, order, axis=1)  # (P, R) rank-ordered

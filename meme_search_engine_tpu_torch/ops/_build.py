@@ -49,6 +49,8 @@ _SIGNATURES = {
     ("mha", "mse_mha"): [c_ptr] * 5 + [c_int] * 5 + [ctypes.c_float] + [c_i64] * 9 + [c_ptr],
     ("adc", "mse_adc"): [c_ptr] * 3 + [c_i64] + [c_int] * 3 + [c_ptr],
     ("gather", "mse_gather_rows"): [c_ptr] * 3 + [c_i64] * 3 + [c_ptr],
+    ("gather_dot", "mse_gather_dot"): [c_ptr] * 4 + [c_i64] + [c_int] * 4 + [c_ptr],
+    ("gather_gram", "mse_gather_gram"): [c_ptr] * 3 + [c_i64] + [c_int] * 2 + [c_i64] + [c_int] + [c_ptr],
 }
 
 _lock = threading.Lock()

@@ -6,7 +6,9 @@ tile, ragged key tiles, narrow heads, strided views); chip_smoke.py
 checks the SO400M shapes. Tolerances: 0.05 for the GEMMs and the fused
 attention + o-projection (tests/test_fused.py), atol 2e-2 for attention
 (tests/test_attention.py:98), rtol = atol = 1e-4 for ADC (tests/test_quantizers.py:175); the row gather
-is exact, so it is compared bit for bit. This file
+is exact, so it is compared bit for bit; the gathered dots at 1e-5 with
+bf16 rows of unit vectors, as the build holds them, and exactly with int8
+rows (integer sums below 2^24). This file
 imports neither JAX nor the JAX package, so on the GPU machine it runs
 without the repository's conftest:
 
@@ -514,7 +516,8 @@ def test_gather_rows_wrapper_refuses_what_the_kernel_does_not_take(gen):
 def test_vamana_build_on_the_card_matches_the_cpu_port():
     """tests/test_vamana.py's fixture built on the card: the build's own
     device-mirror check passes, every hop and prune goes through the
-    kernel, and recall@10 is within 0.03 of the CPU port's build."""
+    gathered-dot kernels (and none through the row gather), and recall@10
+    is within 0.03 of the CPU port's build."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
@@ -532,7 +535,142 @@ def test_vamana_build_on_the_card_matches_the_cpu_port():
     for device in ("cuda", "cpu"):
         gather.reset_launches()
         graph = vamana.build_graph(x, cfg, seed=0, device=device)
-        assert (gather.launches["gather_rows"] > 0) == (device == "cuda")
+        assert (gather.launches["gather_dot"] > 0) == (device == "cuda")
+        assert (gather.launches["gather_gram"] > 0) == (device == "cuda")
+        assert gather.launches["gather_rows"] == 0
         ids = vamana.search(x, graph, q, 10, cfg, device=device)[1]
         recall[device] = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, truth)])
     assert recall["cuda"] > 0.85 and abs(recall["cuda"] - recall["cpu"]) <= 0.03, recall
+
+
+# the gathered dots: C ragged against the Gram's 128-wide tiles (1, 7, 129,
+# 750), rows of 32, 72 (not a 16-byte multiple in int8) and 1152 elements
+
+
+def _unit_rows(gen, n, d, dtype):
+    """The build's corpora: bf16 unit vectors, or int8 in [-127, 127]; fp32
+    unit vectors are the stitch's corpus when no device copy is given."""
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, (n, d), generator=gen, device="cuda", dtype=torch.int8)
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype)
+
+
+def _assert_dots(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [32, 72, 1152])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
+@pytest.mark.parametrize("c", [1, 7, 129, 750])
+def test_gather_dot_kernel(gen, c, dtype, d):
+    n, b = 3001, 5
+    x = _unit_rows(gen, n, d, dtype)
+    idx = torch.randint(0, n, (b, c), generator=gen, device="cuda", dtype=torch.int32)
+    q = x[torch.randint(0, n, (b,), generator=gen, device="cuda")].float()
+    gather.reset_launches()
+    got = gather.gather_dot(x, idx, q)
+    assert gather.launches == {"gather_rows": 0, "gather_dot": 1, "gather_gram": 0}
+    _assert_dots(got, gather.gather_dot_plain(x, idx, q), dtype)
+
+
+@pytest.mark.parametrize("d", [32, 72, 1152])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("c", [1, 7, 129, 750])
+def test_gather_gram_kernel(gen, c, dtype, d):
+    """Against the plain version, and exactly symmetric: each tile on the
+    diagonal stores its upper half twice, each one above it itself and
+    its transpose."""
+    n, b = 3001, 3
+    x = _unit_rows(gen, n, d, dtype)
+    ids = torch.randint(0, n, (b, c), generator=gen, device="cuda", dtype=torch.int32)
+    gather.reset_launches()
+    got = gather.gather_gram(x, ids)
+    assert gather.launches == {"gather_rows": 0, "gather_dot": 0, "gather_gram": 1}
+    _assert_dots(got, gather.gather_gram_plain(x, ids), dtype)
+    assert torch.equal(got, got.transpose(1, 2))
+
+
+def test_gathered_dots_kernels_at_the_builds_shapes(gen):
+    """The hop, (1024, 128) ids, and a prune of 64 rows of the maxc = 750
+    pool, into 48,643 x 1152 bf16 unit rows, as the shard build gives
+    them."""
+    x = _unit_rows(gen, 48_643, 1152, torch.bfloat16)
+    hop = torch.randint(0, 48_643, (1024, 128), generator=gen, device="cuda", dtype=torch.int32)
+    q = x[torch.randint(0, 48_643, (1024,), generator=gen, device="cuda")].float()
+    _assert_dots(gather.gather_dot(x, hop, q), gather.gather_dot_plain(x, hop, q), torch.bfloat16)
+    pool = torch.randint(0, 48_643, (64, 750), generator=gen, device="cuda", dtype=torch.int32)
+    _assert_dots(gather.gather_gram(x, pool), gather.gather_gram_plain(x, pool), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_gathered_dots_kernels_clamp_ids_and_narrow_words(gen, dtype):
+    """Ids past both ends clamp; rows of odd byte counts (2- and 1-byte
+    words) and a corpus whose base is not 16-byte aligned run in the
+    kernels too."""
+    for d in (9, 33, 64):
+        x = _unit_rows(gen, 500, d, dtype)
+        idx = torch.randint(-50, 550, (6, 140), generator=gen, device="cuda", dtype=torch.int32)
+        idx[0, :3] = torch.tensor([-(2**31), 2**31 - 1, 499], dtype=torch.int32)
+        clamped = idx.clamp(0, 499)
+        q = x[:6].float()
+        got = gather.gather_dot(x, idx, q)
+        _assert_dots(got, gather.gather_dot_plain(x, clamped, q), dtype)
+        gram = gather.gather_gram(x, idx)
+        _assert_dots(gram, gather.gather_gram_plain(x, clamped), dtype)
+        assert torch.equal(gram, gather.gather_gram(x, clamped))
+    flat = _unit_rows(gen, 1 + 100 * 64, 1, torch.int8).view(-1)
+    x = flat[1:].view(100, 64)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    idx = torch.randint(0, 100, (5, 20), generator=gen, device="cuda", dtype=torch.int32)
+    _assert_dots(gather.gather_dot(x, idx, x[:5].float()), gather.gather_dot_plain(x, idx, x[:5].float()), torch.int8)
+    _assert_dots(gather.gather_gram(x, idx), gather.gather_gram_plain(x, idx), torch.int8)
+
+
+def test_gathered_dots_kernels_past_2_31_bytes_and_no_ids(gen):
+    """A 1e6 x 1152 bf16 corpus is 2.3 GB: rows near its end need 64-bit
+    offsets. No ids launch nothing."""
+    n, d = 1_000_000, 1152
+    x = torch.zeros((n, d), device="cuda", dtype=torch.bfloat16)
+    x[-1000:] = _unit_rows(gen, 1000, d, torch.bfloat16)
+    idx = torch.randint(n - 1000, n, (64, 100), generator=gen, device="cuda", dtype=torch.int32)
+    q = x[-64:].float()
+    _assert_dots(gather.gather_dot(x, idx, q), gather.gather_dot_plain(x, idx, q), torch.bfloat16)
+    _assert_dots(gather.gather_gram(x, idx[:4]), gather.gather_gram_plain(x, idx[:4]), torch.bfloat16)
+    gather.reset_launches()
+    assert gather.gather_dot(x, idx[:, :0], q).shape == (64, 0)
+    assert gather.gather_gram(x, idx[:0]).shape == (0, 100, 100)
+    assert gather.launches == {"gather_rows": 0, "gather_dot": 0, "gather_gram": 0}
+    del x
+    torch.cuda.empty_cache()
+
+
+def test_gathered_dots_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    x = _unit_rows(gen, 100, 64, torch.bfloat16)
+    idx = torch.zeros((2, 3), device="cuda", dtype=torch.int32)
+    q = x[:2].float()
+    with pytest.raises(TypeError, match="int32"):
+        gather.gather_dot(x, idx.long(), q)
+    with pytest.raises(TypeError, match="int32"):
+        gather.gather_gram(x, idx.long())
+    strided = _unit_rows(gen, 100, 128, torch.bfloat16)[:, :64]  # (100, 64), rows 256 B apart
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_dot(strided, idx, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_gram(strided, idx)
+    with pytest.raises(ValueError):
+        gather.gather_dot(x, idx.cpu(), q)
+    with pytest.raises(ValueError):
+        gather.gather_gram(x, idx.cpu())
+    with pytest.raises(TypeError, match="fp32"):
+        gather.gather_dot(x, idx, x[:2])
+    with pytest.raises(TypeError):
+        gather.gather_gram(x.float(), idx)
+    with pytest.raises(TypeError):
+        gather.gather_dot(x.half(), idx, q)
+
