@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 ``python3 chip_smoke.py --fat-bench [ROOT]`` times the fat attention
 kernel alone (see ``fat_bench``), for an A/B of two checkouts;
 ``python3 chip_smoke.py --gather-bench`` the gathered dots alone (see
-``gather_bench``).
+``gather_bench``); ``--mha-bench [ROOT]`` and ``--adc-bench [ROOT]`` the
+fused attention and ADC kernels alone (see ``mha_bench`` and
+``adc_bench``), each for an A/B of two checkouts.
 
 Phases, in order; any failure exits non-zero with no result line:
 
@@ -24,7 +26,8 @@ Phases, in order; any failure exits non-zero with no result line:
    ``ln_mlp_residual``'s two launches (LN + fc1 + gelu, fc2 + residual)
    are checked and timed apart as well. The image kernels run at the image tower's shapes; the
    fused attention kernel at the text tower's (B, 64, 16, 72), in all
-   three stable modes at B=2, and once more at S=729, B=2. The ADC kernel
+   three stable modes at B=2, and once more at S=729, B=2; then also
+   checked and timed at a single text's (1, 64, 16, 72). The ADC kernel
    at N = 1,000,003 codes of M = 64 bytes with B = 1 and B = 64 LUTs of
    C = 256, at the JAX test's (300, 16) x (3, 16, 256), and at C = 16 with
    codes up to 255 (rtol = atol = 1e-4); then timed at N = 1e6, B = 1 and
@@ -32,7 +35,9 @@ Phases, in order; any failure exits non-zero with no result line:
    the same function (``F.embedding_bag(mode="sum")`` over the LUTs
    zero-padded to 256 entries as a (M * 256, B) table, bag n holding the
    indices codes[n, m] + 256 m; it answers (N, B), held against the plain
-   version at 1e-4 too). The row gather bit for bit (tolerance 0) at the
+   version at 1e-4 too); then both of its routes, M = 32, 64 and 128
+   (conflict-free lookups) and M = 48, each at B = 1, 3 and 64 over
+   250,007 codes, checked and timed. The row gather bit for bit (tolerance 0) at the
    shard build's hop shape, (1024, 128) ids into 48,643 x 1152 bf16, at
    its prune shape (1024, 750), the hop shape in int8, near the end of a
    1e6 x 1152 bf16 corpus (past 2^31 bytes), at D = 32 and 72 in int8, at
@@ -137,6 +142,9 @@ CHECK_TOL = 0.05  # rtol = atol for the GEMM kernels (tests/test_fused.py)
 ATTN_TOL = 2e-2  # atol on valid rows for attention (tests/test_attention.py:98)
 ADC_TOL = 1e-4  # rtol = atol for ADC (tests/test_quantizers.py:175)
 ADC_N, ADC_M = 1_000_003, 64  # a corpus of 1e6 codes and a ragged tail
+# the ADC kernel's two routes at a ragged N: M a multiple of 32 (conflict-free
+# lookups), then 48 (the other route)
+ADC_EDGE_N, ADC_EDGE_M = 250_007, (32, 64, 128, 48)
 NEAR_TIE = 1e-4  # a code may differ from the CPU's only within this of its best sim
 # the row gather at the shard build's shapes: a corpus of about the shard's
 # node count, the hop's (batch, expand x R) ids and the prune's (batch, maxc)
@@ -990,6 +998,86 @@ def fat_bench(root: str) -> int:
     return 0
 
 
+def _bench_package(root: str):
+    """Import the port's ops from the checkout under ROOT (its kernels build
+    into ROOT's own build directory); fails without a card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, os.path.abspath(root))
+    from meme_search_engine_tpu_torch.ops import _build, adc, attention
+
+    _build.build_all()
+    return adc, attention
+
+
+def mha_bench(root: str) -> int:
+    """``python3 chip_smoke.py --mha-bench [ROOT]``: the fused attention
+    kernel alone, from the package under ROOT (this checkout by default),
+    at the text tower's (128, 64, 16, 72) and a single text's (1, 64, 16,
+    72) beside SDPA, after a check against the plain version in all three
+    stable modes at both shapes; one JSON line, then the card's name and
+    power limit. For an A/B in one call: parent, change, change, parent."""
+    import torch
+    import torch.nn.functional as F
+
+    _, attention = _bench_package(root)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": os.path.abspath(root)}
+    for b in (B_TIME, 1):
+        q, k, v = (torch.randn((b, 64, 16, 72), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        row = {}
+        for stable in ("scalar", "row", "none"):
+            err, _ = compare(attention.fused_mha(q, k, v, stable), attention.fused_mha_plain(q, k, v, stable),
+                             ATTN_TOL)
+            if not err <= ATTN_TOL:
+                fail(f"fused_mha[{stable}] disagrees with its plain version at B={b}: max_abs_err {err}")
+            row[f"max_abs_err_{stable}"] = err
+        row["ms"] = time_ms(lambda: attention.fused_mha(q, k, v), reps=20, inner=20)
+        row["sdpa_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), reps=20, inner=20)
+        row["bound_ms"] = 2 * 4 * b * 64 * 16 * 72 / PEAK_BW * 1e3
+        out[f"b{b}"] = row
+    print(json.dumps(out), flush=True)
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
+def adc_bench(root: str) -> int:
+    """``python3 chip_smoke.py --adc-bench [ROOT]``: the ADC kernel alone,
+    from the package under ROOT (this checkout by default), at N = 1e6,
+    M = 64, C = 256 with B = 1, 3 and 64 LUTs, each checked against the
+    plain version at 1e-4 (over a ragged 1,000,003 rows) and timed; one JSON
+    line, then the card's name and power limit. For an A/B in one call:
+    parent, change, change, parent."""
+    import torch
+
+    adc, _ = _bench_package(root)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    codes = torch.randint(0, 256, (ADC_N, ADC_M), generator=gen, device="cuda", dtype=torch.uint8)
+    luts = torch.randn((64, ADC_M, 256), generator=gen, device="cuda")
+    timed = codes[:1_000_000]
+    n = timed.shape[0]
+    out = {"root": os.path.abspath(root), "n": n, "m": ADC_M}
+    for b, inner in ((1, 20), (3, 10), (64, 2)):
+        lt = luts[:b]
+        err, ok = compare(adc.adc_scores_batched(codes, lt), adc.adc_scores_plain(codes, lt), ADC_TOL)
+        if not ok:
+            fail(f"adc_scores disagrees with its plain version at B={b}: max_abs_err {err}")
+        t_bytes = (n * ADC_M + b * n * 4 + lt.numel() * 4) / PEAK_BW * 1e3
+        t_ops = b * n * ADC_M / PEAK_SMEM_WORDS * 1e3
+        out[f"b{b}"] = {"max_abs_err": err,
+                        "ms": time_ms(lambda: adc.adc_scores_batched(timed, lt), reps=20, inner=inner),
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    print(json.dumps(out), flush=True)
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
 def gather_bench() -> int:
     """``python3 chip_smoke.py --gather-bench``: phase 3's gathered dots
     alone (``gathered_dots``: the checks, then the times of both kernels
@@ -1243,6 +1331,19 @@ def main() -> int:
             log(f"  {name}: products' bound {flops / peak_flops * 1e3:.3f} ms, "
                 f"exponentials' {results[name]['exp_bound_ms']:.3f} ms")
     del big, kern, plain, lib  # the closures hold the B=128 inputs
+    # the fused attention kernel at a single text query's shape, (1, 64, 16, 72)
+    oq, okk, ov = (rn(1, TS, TH, TDH) for _ in range(3))
+    one = results["fused_mha"]
+    one["max_abs_err_b1"] = check("fused_mha", 1, lambda: attention.fused_mha(oq, okk, ov),
+                                  lambda: attention.fused_mha_plain(oq, okk, ov), ATTN_TOL, TS)
+    one["ms_b1"] = time_ms(lambda: attention.fused_mha(oq, okk, ov), reps=10, inner=20)
+    one["plain_ms_b1"] = time_ms(lambda: attention.fused_mha_plain(oq, okk, ov), reps=3, inner=20)
+    one["library_ms_b1"] = time_ms(lambda: F.scaled_dot_product_attention(
+        oq.transpose(1, 2), okk.transpose(1, 2), ov.transpose(1, 2)), reps=10, inner=20)
+    one["bound_ms_b1"] = 2 * 4 * TS * TH * TDH / peak_bw * 1e3
+    log(f"time fused_mha B=1: kernel {one['ms_b1']:.4f} ms, plain {one['plain_ms_b1']:.4f} ms, "
+        f"library {one['library_ms_b1']:.4f} ms, bound {one['bound_ms_b1']:.5f} ms (bytes)")
+    del oq, okk, ov
     # ln_matmul's other route, measured beside it and run by no path: the
     # LayerNorm written out first (F.layer_norm into a bf16 copy that the
     # GEMM reads back) and the kernel's SS form on the copy
@@ -1384,6 +1485,23 @@ def main() -> int:
             f"bound {max(t_ops, t_bytes):.4f} ms ({results['adc_scores'][f'bound_by{suffix}']}: "
             f"bytes {t_bytes:.4f}, lookups {t_ops:.4f}), "
             f"{b * n_t * ADC_M / t_k / 1e9:.1f} G lookups/s")
+    # both routes of the kernel at ragged N: M = 32, 64 and 128 take the
+    # conflict-free one, M = 48 the other; B = 1, 3 and 64 (groups of three
+    # queries a CTA, and a last group of one)
+    edges = {}
+    for m_ in ADC_EDGE_M:
+        cd = torch.randint(0, 256, (ADC_EDGE_N, m_), generator=gen, device=dev, dtype=torch.uint8)
+        lt_all = torch.randn((64, m_, 256), generator=gen, device=dev)
+        for b in (1, 3, 64):
+            lt = lt_all[:b]
+            key = f"m{m_}_b{b}"
+            err = check(f"adc_scores {key} N={ADC_EDGE_N}", b, lambda: adc.adc_scores_batched(cd, lt),
+                        lambda: adc.adc_scores_plain(cd, lt), ADC_TOL, None)
+            edges[key] = {"max_abs_err": err,
+                          "ms": time_ms(lambda: adc.adc_scores_batched(cd, lt), reps=5, inner=2)}
+            log(f"time adc_scores {key} N={ADC_EDGE_N}: kernel {edges[key]['ms']:.4f} ms")
+    results["adc_scores"]["edges"] = {"n": ADC_EDGE_N, **edges}
+    del cd, lt_all, lt
     del codes, luts, small_codes, small_luts, narrow_luts, timed_codes, bag_idx, table
     torch.cuda.empty_cache()
 
@@ -1803,8 +1921,9 @@ def main() -> int:
             e["exp_bound_ms"] = results[name]["exp_bound_ms"]
             e["unpacked"] = {"replaces": "meme_search_engine_tpu/ops/attention.py:321",
                              **{k: results["fat_vit_mha"][k] for k in keys + ("exp_bound_ms",)}}
-        if name == "fused_mha":
-            e.update({k: v for k, v in results[name].items() if k.startswith("max_abs_err_")})
+        if name == "fused_mha":  # its other checks, and a single text's shape (the *_b1 keys)
+            e.update({k: v for k, v in results[name].items()
+                      if k.startswith("max_abs_err_") or k.endswith("_b1")})
         kernels.append(e)
     # ms, plain_ms, library_ms and bound_ms at B = 1 (the tool's call); the
     # *_b64 keys at B = 64, both at N = 1e6, M = 64, C = 256
@@ -1857,6 +1976,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fat-bench"]:
         sys.exit(fat_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] == ["--mha-bench"]:
+        sys.exit(mha_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] == ["--adc-bench"]:
+        sys.exit(adc_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--gather-bench"]:
         sys.exit(gather_bench())
     sys.exit(main())

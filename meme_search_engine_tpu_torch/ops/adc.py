@@ -10,7 +10,9 @@ kept). :func:`adc_scores`, :func:`adc_scores_batched` and
 
 with a code >= C scoring 0 (the TPU kernel zero-pads the LUT to 256
 entries, and the one-hot route gives an all-zero row). CUDA tensors launch
-``csrc/adc.cu``; CPU tensors take the plain version,
+``csrc/adc.cu`` (for M a multiple of 32 up to 128, a kernel whose lookups
+are free of bank conflicts, up to three queries a CTA; for other M the
+one-query kernel); CPU tensors take the plain version,
 :func:`adc_scores_plain`, a gather and an fp32 sum over m (not the
 reference's one-hot product, whose (N, M*C) fp32 operand is 65 GB at
 N = 1e6). ``launches`` counts kernel launches; the CPU path never touches it.
@@ -39,11 +41,12 @@ __all__ = [
 launches = {"adc_scores": 0}
 
 LUT_WIDTH = 256
-# The kernel holds one query's (M, 256) fp32 LUT in shared memory: 227 KB
-# a CTA on Hopper allows M <= 227.
+# The kernels hold at least one query's (M, 256) fp32 LUT in shared
+# memory: 227 KB a CTA on Hopper allows M <= 227.
 MAX_CHUNKS = 227
-# Rows a CTA of the kernel takes; its one-dimensional grid holds at most
-# 2^31 - 1 CTAs of (query, row tile).
+# Rows a CTA of the one-query kernel takes; its one-dimensional grid holds
+# at most 2^31 - 1 CTAs of (query, row tile), a bound the wrapper applies to
+# both kernels.
 TILE_ROWS = 4096
 MAX_CTAS = 2**31 - 1
 

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) primitives shared by the port's TMA + wgmma kernels:
-// gemm.cu and fat_attention.cu. mbarriers with bounded waits, TMA loads
+// Hopper (sm_90a) primitives shared by the port's TMA kernels: gemm.cu,
+// fat_attention.cu and mha.cu. mbarriers with bounded waits, TMA loads
 // and stores, named barriers, wgmma fences and shared-memory matrix
 // descriptors, the Mma<N, TB> wrappers of wgmma.mma_async, and the host's
 // tensor-map encoder taken from the driver through the runtime.
@@ -70,6 +70,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// one 4-D box at element coordinates (c0 innermost, c1, c2, c3)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
 // one 2-D box from shared memory to element coordinates (c0, c1); parts
 // of the box past the array's bounds are not written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
@@ -80,9 +90,29 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
       : "memory");
 }
 
+// one 4-D box from shared memory to element coordinates (c0, c1, c2, c3),
+// clipped at the array's bounds like the 2-D store
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 // wait until every TMA store this thread issued has read its source
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// wait until every TMA store this thread issued has been written
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // named barrier `id` over THREADS threads (128: one warpgroup): wait for

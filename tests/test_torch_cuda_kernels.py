@@ -220,8 +220,11 @@ def test_fat_attention_proj_wrapper_refuses_what_the_kernel_does_not_take(gen):
     assert attention.launches["fat_vit_mha_packed_proj"] == 0
 
 
-@pytest.mark.parametrize("s", [64, 24, 729])
-@pytest.mark.parametrize("d", [72, 16])
+# S up to 64 takes the persistent one-block kernel (2, 24, 63 and 64: one
+# key row, ragged tiles, a full tile), past it the multi-block one (65:
+# a second block of one row; 729, the image tower's xla route)
+@pytest.mark.parametrize("s", [2, 24, 63, 64, 65, 729])
+@pytest.mark.parametrize("d", [72, 16, 7])
 @pytest.mark.parametrize("stable", ["row", "scalar", "none"])
 def test_fused_mha_kernel(gen, s, d, stable):
     b, h = 2, 4
@@ -229,15 +232,31 @@ def test_fused_mha_kernel(gen, s, d, stable):
     attention.reset_launches()
     got = attention.fused_mha(q, k, v, stable=stable)
     assert attention.launches["fused_mha"] == 1
-    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, d) and got.is_contiguous()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, d)
+    assert got.is_contiguous() or d % 8  # a width padded to 8 comes back as a view
     _assert_close(got, attention.fused_mha_plain(q, k, v, stable), 2e-2)
 
 
+@pytest.mark.parametrize("b,h", [(1, 16), (37, 16), (1000, 3)])
+@pytest.mark.parametrize("stable", ["row", "scalar", "none"])
+def test_fused_mha_kernel_at_the_text_shape(gen, b, h, stable):
+    """The text tower's (B, 64, H, 72): a single text (16 items, fewer than
+    the grid), and more (batch, head) items than the persistent grid
+    holds, their count no multiple of it, so CTAs take unequal shares."""
+    q, k, v = (_rn(gen, b, 64, h, 72) for _ in range(3))
+    attention.reset_launches()
+    got = attention.fused_mha(q, k, v, stable=stable)
+    assert attention.launches["fused_mha"] == 1
+    _assert_close(got, attention.fused_mha_plain(q, k, v, stable), 2e-2)
+
+
+@pytest.mark.parametrize("s", [80, 64, 50])
 @pytest.mark.parametrize("stable", ["row", "scalar"])
-def test_fused_mha_kernel_strided_views(gen, stable):
+def test_fused_mha_kernel_strided_views(gen, stable, s):
     """q/k/v as views into one packed (B, S, 3, H, Dh) projection and into
-    a head-major (B, H, S, Dh) array: read in place through strides."""
-    b, s, h, d = 3, 80, 16, 72
+    a head-major (B, H, S, Dh) array: read in place through strides (by
+    cp.async past 64 rows, by tensor maps up to 64)."""
+    b, h, d = 3, 16, 72
     packed = _rn(gen, b, s, 3, h, d)
     q, k, v = packed.unbind(2)
     assert not q.is_contiguous()
@@ -345,11 +364,14 @@ def _to_cuda(tree):
 
 
 @pytest.mark.parametrize("c", [16, 256])
-@pytest.mark.parametrize("m", [8, 16, 64])
-@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("m", [8, 16, 48, 32, 64, 96, 128])
+@pytest.mark.parametrize("b", [1, 2, 3, 64])
 def test_adc_kernel(gen, b, m, c):
-    """Ragged N (not a multiple of the 4096-row tile nor of 256 threads);
-    codes up to 255 also where C = 16, which score 0."""
+    """Ragged N (not a multiple of the 4096-row tile, of 512 rows, nor of 256
+    threads); codes up to 255 also where C = 16, which score 0. M a multiple
+    of 32 up to 128 takes the conflict-free route (up to three LUTs a CTA,
+    B = 64 leaving a last group of one), 8, 16 and 48 the other; each route
+    counts its launch once."""
     n = 10_007
     codes = torch.randint(0, 256, (n, m), generator=gen, device="cuda", dtype=torch.uint8)
     luts = torch.randn((b, m, c), generator=gen, device="cuda")
@@ -363,6 +385,19 @@ def test_adc_kernel(gen, b, m, c):
     torch.cuda.synchronize()
     torch.testing.assert_close(one, got[0], rtol=1e-4, atol=1e-4)
     assert adc.launches["adc_scores"] == 2
+
+
+@pytest.mark.parametrize("n", [1, 31, 300, 513])
+@pytest.mark.parametrize("m", [64, 128, 48])
+def test_adc_kernel_below_one_tile(gen, n, m):
+    """Fewer rows than a warp, a CTA's pass (512) or a tile (4096)."""
+    codes = torch.randint(0, 256, (n, m), generator=gen, device="cuda", dtype=torch.uint8)
+    luts = torch.randn((3, m, 256), generator=gen, device="cuda")
+    adc.reset_launches()
+    got = adc.adc_scores_batched(codes, luts)
+    torch.cuda.synchronize()
+    assert adc.launches["adc_scores"] == 1
+    torch.testing.assert_close(got, adc.adc_scores_plain(codes, luts), rtol=1e-4, atol=1e-4)
 
 
 def test_adc_kernel_byte_loads_on_unaligned_codes(gen):

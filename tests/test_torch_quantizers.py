@@ -45,8 +45,8 @@ def _both_pq(arrays):
 
 @pytest.mark.parametrize(
     "n,m,b,c",
-    [(300, 16, 3, 256), (1500, 64, 2, 256), (200, 8, 3, 16)],
-    ids=["test_shape", "ragged", "codes_past_c"],
+    [(300, 16, 3, 256), (1500, 64, 2, 256), (200, 8, 3, 16), (700, 96, 4, 256)],
+    ids=["test_shape", "ragged", "codes_past_c", "m96"],
 )
 def test_adc_plain_matches_jax(n, m, b, c):
     rng = np.random.default_rng(9)
