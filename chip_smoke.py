@@ -8,9 +8,10 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 ``python3 chip_smoke.py --fat-bench [ROOT]`` times the fat attention
 kernel alone (see ``fat_bench``), for an A/B of two checkouts;
 ``python3 chip_smoke.py --gather-bench`` the gathered dots alone (see
-``gather_bench``); ``--mha-bench [ROOT]`` and ``--adc-bench [ROOT]`` the
-fused attention and ADC kernels alone (see ``mha_bench`` and
-``adc_bench``), each for an A/B of two checkouts.
+``gather_bench``); ``--mha-bench [ROOT]``, ``--adc-bench [ROOT]`` and
+``--proj-bench [ROOT]`` the fused attention, ADC and fused attention +
+o-projection kernels alone (see ``mha_bench``, ``adc_bench`` and
+``proj_bench``), each for an A/B of two checkouts.
 
 Phases, in order; any failure exits non-zero with no result line:
 
@@ -51,11 +52,14 @@ Phases, in order; any failure exits non-zero with no result line:
    (Gram) shapes beside their plain versions, the route each replaces in
    the build (gather_rows, .float(), fp32 bmm), ``torch.index_select`` +
    ``torch.bmm(out_dtype=torch.float32)`` and the bound. The fused attention +
-   o-projection kernel (``fat_vit_mha_packed_proj``, which no main path
-   runs) on the image tower's layer shapes and activations at B=2 and
-   B=128, against its plain version and against kernels 7 then 2 on the
-   card (valid rows, rtol = atol = 0.05), and at the tiny geometries;
-   then timed beside its plain version, 7 + 2 and SDPA + addmm.
+   o-projection kernel (``fat_vit_mha_packed_proj``, clusters of 8 CTAs
+   over heads, which no main path runs: it lost to kernels 7 then 2)
+   on the image tower's layer shapes and activations at B=2 and B=128,
+   against its plain version and against kernels 7 then 2 on the card
+   (valid rows, rtol = atol = 2e-2), at SP = 200 with 129 valid rows (two
+   query blocks) and at the tiny geometries; its cluster size,
+   ``cudaOccupancyMaxActiveClusters`` and ptxas's registers and spills
+   logged; then timed beside its plain version, 7 + 2 and SDPA + addmm.
 4. Main path at full SO400M width (27 layers per tower, random weights
    from a seed, the hash tokenizer): one EmbeddingEngine holds both
    towers behind the service's InferenceWorker.
@@ -945,6 +949,26 @@ def fat_rows(attention, qkvf, n_heads: int, head_dim: int, s: int) -> dict:
     }
 
 
+def fat_qkvf(gen, b: int, sp: int, n_valid: int, h: int, d: int):
+    """A packed fat-layout (B, SP, 3*H*C) bf16 qkvf on the card, as the QKV
+    projection emits it: q's features pre-scaled by 1/sqrt(d) with its
+    constant 1, k's constant -1e30 on the pad rows (whose features are 0),
+    v's constant 1; features from ``gen``."""
+    import torch
+
+    from meme_search_engine_tpu_torch.ops.attention import fat_width
+
+    c = fat_width(d)
+    f = torch.randn((b, sp, 3, h, c), generator=gen, device="cuda")
+    f[..., d:] = 0
+    f[:, :, 0, :, :d] *= d**-0.5
+    f[:, :, 0, :, d] = 1
+    f[:, n_valid:, 1] = 0
+    f[:, n_valid:, 1, :, d] = -1e30
+    f[:, :, 2, :, d] = 1
+    return f.reshape(b, sp, 3 * h * c).to(torch.bfloat16)
+
+
 def fat_bench(root: str) -> int:
     """``python3 chip_smoke.py --fat-bench [ROOT]``: the fat attention
     alone, from the package under ROOT (this checkout by default), at the
@@ -964,18 +988,11 @@ def fat_bench(root: str) -> int:
 
     cfg = siglip.SO400M_14_384
     h, dh, s = cfg.num_heads, cfg.head_dim, cfg.num_patches
-    sp, c = (s + 15) // 16 * 16, attention.fat_width(cfg.head_dim)
+    sp = (s + 15) // 16 * 16
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def packed(b):
-        f = torch.randn((b, sp, 3, h, c), generator=gen, device="cuda")
-        f[..., dh:] = 0
-        f[:, :, 0, :, :dh] *= dh**-0.5
-        f[:, :, 0, :, dh] = 1
-        f[:, s:, 1] = 0
-        f[:, s:, 1, :, dh] = -1e30
-        f[:, :, 2, :, dh] = 1
-        return f.reshape(b, sp, 3 * h * c).to(torch.bfloat16)
+        return fat_qkvf(gen, b, sp, s, h, dh)
 
     out = {"root": os.path.abspath(root), "b": B_TIME}
     for name, (kern, plain, _lib, _f, _n, tol, rows) in fat_rows(attention, packed(B_CHECK), h, dh, s).items():
@@ -1073,6 +1090,49 @@ def adc_bench(root: str) -> int:
                         "ms": time_ms(lambda: adc.adc_scores_batched(timed, lt), reps=20, inner=inner),
                         "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    print(json.dumps(out), flush=True)
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
+def proj_bench(root: str) -> int:
+    """``python3 chip_smoke.py --proj-bench [ROOT]``: kernel 8 alone, from
+    the package under ROOT (this checkout by default), on one image layer's
+    shapes with B = 128 beside kernels 7 + 2 (the same function in two
+    launches), after a check of both against the plain version at B = 2
+    (valid rows, rtol = atol = 2e-2); one JSON line with each one's
+    CUDA-event median, then the card's name and power limit. For an A/B in
+    one call: parent, change, change, parent."""
+    import torch
+
+    _bench_package(root)
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.ops import attention, fused
+
+    cfg = siglip.SO400M_14_384
+    h, dh, s, d = cfg.num_heads, cfg.head_dim, cfg.num_patches, cfg.width
+    sp = (s + 15) // 16 * 16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wo = (torch.randn((h * dh, d), generator=gen, device="cuda") * (h * dh) ** -0.5).to(torch.bfloat16)
+    bo = (torch.randn((d,), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    out = {"root": os.path.abspath(root), "b": B_TIME}
+    for b in (B_CHECK, B_TIME):
+        qkvf = fat_qkvf(gen, b, sp, s, h, dh)
+        x = torch.randn((b, sp, d), generator=gen, device="cuda").to(torch.bfloat16)
+        routes = {
+            "kernel": lambda: attention.fat_vit_mha_packed_proj(qkvf, wo, bo, x, h, dh),
+            "composed": lambda: fused.matmul_residual(attention.fat_vit_mha_packed(qkvf, h, dh), wo, bo, x),
+        }
+        if b == B_CHECK:
+            want = attention.fat_vit_mha_packed_proj_plain(qkvf, wo, bo, x, h, dh)
+            for name, fn in routes.items():
+                err, ok = compare(fn(), want, ATTN_TOL, s)
+                if not ok:
+                    fail(f"{name} disagrees with kernel 8's plain version at B={b}: max_abs_err {err}")
+                out[f"{name}_max_abs_err_b{b}"] = err
+        else:
+            out["ms"] = time_ms(routes["kernel"], reps=20)
+            out["composed_ms"] = time_ms(routes["composed"], reps=20)
     print(json.dumps(out), flush=True)
     print(nvidia_smi(), flush=True)
     return 0
@@ -1363,19 +1423,24 @@ def main() -> int:
     # no main path runs it (the towers run kernels 7 then 2, as the JAX
     # package's do), so it is held, on the image tower's layer shapes and
     # activations, against its plain version and against 7 + 2 on the
-    # card, valid rows, rtol = atol = CHECK_TOL; then timed against both
+    # card, valid rows, rtol = atol = ATTN_TOL; then timed against both
     wo, bo = attn_p["o"]["w"], attn_p["o"]["b"]
     HD = H * DH
 
-    def check_proj(what, b, got, want):
-        err, ok = compare(got, want, CHECK_TOL, S)
-        log(f"check {what} B={b}: max_abs_err {err:.3e} on the valid rows (tol {CHECK_TOL}) "
+    def check_proj(what, b, got, want, rows=S):
+        err, ok = compare(got, want, ATTN_TOL, rows)
+        log(f"check {what} B={b}: max_abs_err {err:.3e} on the valid rows (rtol = atol = {ATTN_TOL}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{what} disagrees at B={b}: max_abs_err {err}")
         return err
 
-    proj = {"tolerance": CHECK_TOL}
+    proj = {"tolerance": ATTN_TOL}
+    proj["cluster"], proj["max_active_clusters"] = attention.fat_vit_mha_packed_proj_occupancy(H, DH, D)
+    proj["ptxas"] = [line.strip() for line in _build.build_log.get("fat_attention_proj", "").splitlines()
+                     if "registers" in line or "spill" in line]
+    log(f"fat_vit_mha_packed_proj: clusters of {proj['cluster']} CTAs, "
+        f"cudaOccupancyMaxActiveClusters {proj['max_active_clusters']}; ptxas: {proj['ptxas']}")
     for b, suffix in ((B_CHECK, ""), (B_TIME, "_b128")):
         x, qkvf, _ = inputs(b)
         kern = lambda: attention.fat_vit_mha_packed_proj(qkvf, wo, bo, x, H, DH)  # noqa: E731
@@ -1412,32 +1477,36 @@ def main() -> int:
     proj.update(ms=t_k, plain_ms=t_p, composed_ms=t_c, library_ms=t_l,
                 library_calls="F.scaled_dot_product_attention + torch.addmm, two calls",
                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                tflops=flops / t_k / 1e9)
+                tflops=flops / t_k / 1e9, peak_share=flops / t_k * 1e3 / peak_flops)
     log(f"time fat_vit_mha_packed_proj B={B_TIME}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
         f"7 + 2 composed {t_c:.3f} ms, library (SDPA + addmm, two calls) {t_l:.3f} ms, bound "
         f"{max(t_ops, t_bytes):.3f} ms ({proj['bound_by']}: operations {t_ops:.3f}, bytes "
-        f"{t_bytes:.3f}), {flops / t_k / 1e9:.1f} TFLOP/s")
+        f"{t_bytes:.3f}), {flops / t_k / 1e9:.1f} TFLOP/s = {proj['peak_share']:.1%} of the bf16 peak")
     del x, qkvf, qkv4, qs, ks, vs, x2, kern, plain, composed
-    # the tiny geometries: tiny_test_config (C 24 -> 32, H*DH = DM = 64) and
-    # tiny_fat_test_config (C 8 -> 16, H*DH = DM = 112), 4 valid rows of 16
+    # a ragged SP over two query blocks, the second holding one valid row:
+    # SP = 200 with 129 valid rows, SO400M heads and Wo
+    rq, rr = fat_qkvf(gen, B_CHECK, 200, 129, H, DH), rn(B_CHECK, 200, D)
+    got = attention.fat_vit_mha_packed_proj(rq, wo, bo, rr, H, DH)
+    proj["max_abs_err_sp200"] = check_proj(
+        "fat_vit_mha_packed_proj [SP=200, 129 valid]", B_CHECK, got,
+        attention.fat_vit_mha_packed_proj_plain(rq, wo, bo, rr, H, DH), 129)
+    proj["max_abs_err_composed_sp200"] = check_proj(
+        "fat_vit_mha_packed_proj against 7 + 2 [SP=200, 129 valid]", B_CHECK, got,
+        fused.matmul_residual(attention.fat_vit_mha_packed(rq, H, DH), wo, bo, rr), 129)
+    del rq, rr, got
+    # the tiny geometries: tiny_test_config (C 24 -> 32, H*DH = DM = 64,
+    # clusters of 2) and tiny_fat_test_config (C 8 -> 16, H*DH = DM = 112,
+    # clusters of 8), 4 valid rows of 16
     for tag, (th, td) in {"tiny": (4, 16), "tiny_fat": (16, 7)}.items():
-        tc, tsp, tvalid = attention.fat_width(td), 16, 4
-        f = torch.randn((B_CHECK, tsp, 3, th, tc), generator=gen, device=dev)
-        f[..., td:] = 0
-        f[:, :, 0, :, :td] *= td**-0.5
-        f[:, :, 0, :, td] = 1
-        f[:, tvalid:, 1] = 0
-        f[:, tvalid:, 1, :, td] = -1e30
-        f[:, :, 2, :, td] = 1
-        tq = f.reshape(B_CHECK, tsp, 3 * th * tc).to(torch.bfloat16)
-        tw, tb, tr = rn(th * td, th * td, std=(th * td) ** -0.5), rn(th * td, std=0.02), rn(B_CHECK, tsp, th * td)
-        err, ok = compare(attention.fat_vit_mha_packed_proj(tq, tw, tb, tr, th, td),
-                          attention.fat_vit_mha_packed_proj_plain(tq, tw, tb, tr, th, td), CHECK_TOL, tvalid)
-        log(f"check fat_vit_mha_packed_proj [{tag}] B={B_CHECK}: max_abs_err {err:.3e} on the valid "
-            f"rows (tol {CHECK_TOL}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"fat_vit_mha_packed_proj disagrees with its plain version [{tag}]: {err}")
-        proj[f"max_abs_err_{tag}"] = err
+        tq = fat_qkvf(gen, B_CHECK, 16, 4, th, td)
+        tw, tb, tr = rn(th * td, th * td, std=(th * td) ** -0.5), rn(th * td, std=0.02), rn(B_CHECK, 16, th * td)
+        got = attention.fat_vit_mha_packed_proj(tq, tw, tb, tr, th, td)
+        proj[f"max_abs_err_{tag}"] = check_proj(
+            f"fat_vit_mha_packed_proj [{tag}]", B_CHECK, got,
+            attention.fat_vit_mha_packed_proj_plain(tq, tw, tb, tr, th, td), 4)
+        proj[f"max_abs_err_composed_{tag}"] = check_proj(
+            f"fat_vit_mha_packed_proj against 7 + 2 [{tag}]", B_CHECK, got,
+            fused.matmul_residual(attention.fat_vit_mha_packed(tq, th, td), tw, tb, tr), 4)
     results["fat_vit_mha_packed_proj"] = proj
     torch.cuda.empty_cache()
 
@@ -1980,6 +2049,8 @@ if __name__ == "__main__":
         sys.exit(mha_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--adc-bench"]:
         sys.exit(adc_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] == ["--proj-bench"]:
+        sys.exit(proj_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--gather-bench"]:
         sys.exit(gather_bench())
     sys.exit(main())

@@ -46,6 +46,7 @@ _SIGNATURES = {
         [c_ptr] * 4 + [c_int] * 5 + [c_i64] * 6 + [c_ptr]
     ),
     ("fat_attention_proj", "mse_fat_attention_proj"): [c_ptr] * 5 + [c_int] * 6 + [c_ptr],
+    ("fat_attention_proj", "mse_fat_attention_proj_occupancy"): [c_int] * 4 + [c_ptr] * 2,
     ("mha", "mse_mha"): [c_ptr] * 5 + [c_int] * 5 + [ctypes.c_float] + [c_i64] * 9 + [c_ptr],
     ("adc", "mse_adc"): [c_ptr] * 3 + [c_i64] + [c_int] * 3 + [c_ptr],
     ("gather", "mse_gather_rows"): [c_ptr] * 3 + [c_i64] * 3 + [c_ptr],

@@ -25,13 +25,16 @@ The plain versions compute exactly that with full score matrices in
 fp32; the wrappers launch ``csrc/fat_attention.cu`` on CUDA tensors, a
 streaming (online-softmax) kernel, and take the plain version only for
 CPU tensors. :func:`fat_vit_mha_packed_proj` adds the o-projection and
-the residual (``csrc/fat_attention_proj.cu``, the same attention code
-through ``csrc/fat_attention.cuh``); like the JAX op, no model path
-calls it: the image tower runs :func:`fat_vit_mha_packed` then
-``fused.matmul_residual``.
+the residual (``csrc/fat_attention_proj.cu``: the same attention code,
+through ``csrc/fat_attention.cuh``, in a thread-block cluster over heads
+whose CTAs then share their heads' outputs for the projection); like the
+JAX op, no model path calls it: the image tower runs
+:func:`fat_vit_mha_packed` then ``fused.matmul_residual``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +56,7 @@ __all__ = [
     "fat_vit_mha_packed_plain",
     "fat_vit_mha_packed_proj",
     "fat_vit_mha_packed_proj_plain",
+    "fat_vit_mha_packed_proj_occupancy",
     "launches",
     "reset_launches",
 ]
@@ -314,9 +318,37 @@ def fat_vit_mha_packed(qkvf: torch.Tensor, n_heads: int, head_dim: int) -> torch
     )
 
 
-# The fused kernel keeps a (64, H*head_dim) bf16 attention block in shared
-# memory: SO400M's 1152 columns fill most of it (205 KB of 227 KB).
-PROJ_MAX_HD = 1152
+# The fused kernel runs thread-block clusters of H / 2 CTAs, two heads a
+# CTA, each cluster walking (image, 128-row query block) tiles; a cluster
+# holds at most 8 CTAs (the portable size). CTA j of a cluster computes output columns
+# [NC j, NC j + NC), NC = DM / (H / 2) rounded up to 16. For each fat width
+# padded to 16 the kernel is compiled for one head width in its attention
+# slice, DP (head_dim rounded up to 8), and one NC: SO400M, tiny_test_config
+# and tiny_fat_test_config.
+PROJ_MAX_CLUSTER = 8
+PROJ_GEOMETRIES = {80: (72, 144), 32: (16, 32), 16: (8, 16)}  # CP -> (DP, NC)
+
+
+def _proj_geometry(n_heads: int, head_dim: int, dm: int) -> tuple:
+    """(cluster size, DP) for the fused kernel, or ValueError."""
+    _check_width(head_dim)
+    cluster = n_heads // 2
+    if n_heads % 2 or not 1 <= cluster <= PROJ_MAX_CLUSTER:
+        raise ValueError(
+            f"kernel takes an even head count up to {2 * PROJ_MAX_CLUSTER} (two heads a "
+            f"CTA of a cluster of at most {PROJ_MAX_CLUSTER}), got {n_heads}"
+        )
+    dp, nc = PROJ_GEOMETRIES[kernel_width(head_dim)]
+    if -(-head_dim // 8) * 8 != dp:
+        raise ValueError(f"head_dim {head_dim}: the kernel is compiled for {dp} at this fat width")
+    per_cta = -(-dm // cluster)
+    got = -(-per_cta // 16) * 16
+    if got != nc:
+        raise ValueError(
+            f"DM {dm} over {cluster} CTAs is {got} output columns a CTA; the kernel is "
+            f"compiled for {nc} at head_dim {head_dim}"
+        )
+    return cluster, dp
 
 
 def fat_vit_mha_packed_proj_plain(qkvf, wo, bo, res, n_heads: int, head_dim: int) -> torch.Tensor:
@@ -340,7 +372,9 @@ def fat_vit_mha_packed_proj(
     qkvf: packed (B, SP, 3*H*C); wo: (H*head_dim, DM); bo: (DM,); res:
     (B, SP, DM). Returns (B, SP, DM) in res.dtype. CPU tensors take
     :func:`fat_vit_mha_packed_proj_plain`; CUDA tensors launch
-    ``csrc/fat_attention_proj.cu`` (bf16, contiguous) or raise.
+    ``csrc/fat_attention_proj.cu`` (bf16, contiguous) or raise. At the
+    tiny widths the kernel reads a :func:`fat_pad` copy of qkvf and, where
+    head_dim is not a multiple of 8, of wo's rows (zero rows to DP a head).
     """
     if _on_cpu(qkvf, wo, bo, res):
         return fat_vit_mha_packed_proj_plain(qkvf, wo, bo, res, n_heads, head_dim)
@@ -348,25 +382,40 @@ def fat_vit_mha_packed_proj(
         raise ValueError(f"qkvf: expected (B, SP, 3*H*C), wo: (H*D, DM), got "
                          f"{tuple(qkvf.shape)} and {tuple(wo.shape)}")
     b, sp, hc3 = qkvf.shape
-    c = fat_width(head_dim)
+    c, cp = fat_width(head_dim), kernel_width(head_dim)
     hd, dm = n_heads * head_dim, wo.shape[1]
     if hc3 != 3 * n_heads * c:
         raise ValueError(f"width {hc3} != 3 * n_heads * fat_width({head_dim})")
-    _check_width(head_dim)
-    if hd % 16 or hd > PROJ_MAX_HD or dm % 8:
-        raise ValueError(
-            f"kernel needs H*head_dim a multiple of 16 up to {PROJ_MAX_HD} and "
-            f"DM a multiple of 8, got {hd} and {dm}"
-        )
+    if dm % 8:
+        raise ValueError(f"kernel needs DM a multiple of 8, got {dm}")
+    _, dp = _proj_geometry(n_heads, head_dim, dm)
     _check("qkvf", qkvf, (b, sp, hc3))
     _check("wo", wo, (hd, dm))
     _check("bo", bo, (dm,))
     _check("res", res, (b, sp, dm))
+    if cp != c:
+        qkvf = fat_pad(qkvf, 3 * n_heads, c, cp)
+    if dp != head_dim:  # each head's rows of Wo, then zero rows up to DP
+        wo = F.pad(wo.reshape(n_heads, head_dim, dm), (0, 0, 0, dp - head_dim))
+        wo = wo.reshape(n_heads * dp, dm)
     out = torch.empty((b, sp, dm), dtype=torch.bfloat16, device=qkvf.device)
     err = _build.library("fat_attention_proj").mse_fat_attention_proj(
         qkvf.data_ptr(), wo.data_ptr(), bo.data_ptr(), res.data_ptr(), out.data_ptr(),
-        b, sp, n_heads, c, head_dim, dm, _build.stream_ptr(qkvf.device),
+        b, sp, n_heads, cp, head_dim, dm, _build.stream_ptr(qkvf.device),
     )
     _build.check(err, "fat_vit_mha_packed_proj")
     launches["fat_vit_mha_packed_proj"] += 1
     return out
+
+
+def fat_vit_mha_packed_proj_occupancy(n_heads: int, head_dim: int, dm: int) -> tuple:
+    """(cluster size, clusters the card holds at once) of the fused
+    kernel's launch for a geometry (``cudaOccupancyMaxActiveClusters``)."""
+    _proj_geometry(n_heads, head_dim, dm)
+    cluster, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    err = _build.library("fat_attention_proj").mse_fat_attention_proj_occupancy(
+        n_heads, kernel_width(head_dim), head_dim, dm,
+        ctypes.addressof(cluster), ctypes.addressof(clusters),
+    )
+    _build.check(err, "fat_vit_mha_packed_proj_occupancy")
+    return cluster.value, clusters.value

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) primitives shared by the port's TMA kernels: gemm.cu,
-// fat_attention.cu and mha.cu. mbarriers with bounded waits, TMA loads
-// and stores, named barriers, wgmma fences and shared-memory matrix
-// descriptors, the Mma<N, TB> wrappers of wgmma.mma_async, and the host's
-// tensor-map encoder taken from the driver through the runtime.
+// fat_attention.cu, fat_attention_proj.cu and mha.cu. mbarriers with
+// bounded waits, TMA loads and stores, named barriers, thread-block
+// clusters (barriers, peer shared memory, copies and arrivals into it),
+// wgmma fences and shared-memory matrix descriptors, the Mma<N, TB>
+// wrappers of wgmma.mma_async, and the host's tensor-map encoder taken
+// from libcuda through the runtime.
 
 #pragma once
 
@@ -80,6 +82,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// one 3-D box from shared memory to element coordinates (c0, c1, c2),
+// clipped at the array's bounds
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // one 2-D box from shared memory to element coordinates (c0, c1); parts
 // of the box past the array's bounds are not written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
@@ -113,6 +126,76 @@ __device__ __forceinline__ void bulk_wait_read() {
 // wait until every TMA store this thread issued has been written
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma, TMA stores, bulk copies) of the threads that sync
+// with it after
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- thread-block clusters ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier: every thread of every CTA of the cluster arrives,
+// then waits for all (work may run between the two); it orders each
+// thread's memory operations before its arrival (peers' shared memory
+// included) before the others' after their wait. A thread waits for one
+// barrier before it arrives at the next.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the address in CTA `rank`'s shared memory of this CTA's shared address
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// arrive on a peer's barrier (peer_addr); a peer's barrier is waited on
+// with mbar_wait, as CUTLASS's cluster pipelines do: the arrival releases
+// at the default (CTA) scope, enough to order this CTA's finished reads of
+// its own shared memory before a peer's copy into it
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive on a peer's barrier and expect `bytes` more on its phase
+__device__ __forceinline__ void mbar_expect_tx_peer(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cluster.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// copy `bytes` (a multiple of 16) of this CTA's shared memory into a
+// peer's (dst, bar: peer_addr), completing them on the peer's barrier
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // named barrier `id` over THREADS threads (128: one warpgroup): wait for
@@ -179,8 +262,8 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 }
 
 // D(64 x N, fp32) (+)= A(64 x 16) B(16 x N), bf16 operands; B MN-major
-// when TB is 1, K-major when it is 0; scale_d 0 overwrites D. ss (N = 128,
-// 192, 256): A from shared memory (K-major); rs: A from registers, each
+// when TB is 1, K-major when it is 0; scale_d 0 overwrites D. ss (N = 16,
+// 32, 128, 192, 256): A from shared memory (K-major); rs: A from registers, each
 // thread's four words laid out as the m16n8k16 MMA's A fragment of its
 // warp's 16 rows. The
 // accumulator layout: d[4j + t] holds row g (t < 2) or g + 8 (t >= 2) of
@@ -193,6 +276,16 @@ struct Mma;
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 
 template <int TB> struct Mma<16, TB> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, "
+        "%8, %9, p, 1, 1, 0, %11;\n}\n"
+        : D8(0)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
@@ -205,6 +298,16 @@ template <int TB> struct Mma<16, TB> {
 };
 
 template <int TB> struct Mma<32, TB> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, "
+        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        : D8(0), D8(8)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
@@ -345,6 +448,20 @@ EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// a bf16 tensor map of `rank` dimensions (innermost first) with the given
+// byte strides of the outer ones, box and swizzle; reads past the bounds
+// give 0 and stores past them are dropped
+int tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

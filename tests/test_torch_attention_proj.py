@@ -18,12 +18,16 @@ from meme_search_engine_tpu.ops import attention as jattn
 from meme_search_engine_tpu_torch.ops import attention, fused
 
 
-def _qkvf(rng, b, sp, n_valid, h, d):
+def _qkvf(rng, b, sp, n_valid, h, d, prescale_q=False):
     """Packed fat-layout (B, SP, 3*H*C) fp32: q's constant column 1, k's
-    0 on valid rows and -1e30 on pad rows (whose features are 0), v's 1."""
+    0 on valid rows and -1e30 on pad rows (whose features are 0), v's 1;
+    with ``prescale_q`` q's features scaled by 1/sqrt(d), as the QKV
+    projection hands them over."""
     c = attention.fat_width(d)
     f = np.zeros((b, sp, 3, h, c), np.float32)
     f[..., :d] = rng.standard_normal((b, sp, 3, h, d))
+    if prescale_q:
+        f[:, :, 0, :, :d] *= d**-0.5
     f[:, :, 0, :, d] = 1.0
     f[:, n_valid:, 1] = 0.0
     f[:, n_valid:, 1, :, d] = -1e30
@@ -31,22 +35,32 @@ def _qkvf(rng, b, sp, n_valid, h, d):
     return f.reshape(b, sp, 3 * h * c)
 
 
+# the JAX test's shapes; the tiny fat geometry with pad rows; an SP over two
+# of the CUDA kernel's 128-row query blocks with 129 valid rows (the second
+# block holds one valid row and seven pad rows; the JAX kernel takes it as
+# one block, nq = 1, since 136 / 2 is no multiple of 8), at the tiny and
+# tiny fat geometries. The ragged cases take a layer's scales (q
+# pre-scaled by 1/sqrt(d), Wo by 1/sqrt(H*d)): with unit ones, P is near
+# one-hot over 136 keys and a bf16 rounding of P that XLA's exp and
+# torch's place on either side of a tie moves outputs of about 10 by
+# 1e-3, past the JAX test's 1e-4.
 @pytest.mark.parametrize(
-    "b,sp,n_valid,h,d,dm",
-    [(2, 16, 16, 4, 8, 24), (2, 16, 4, 16, 7, 112)],
-    ids=["jax_test_shapes", "tiny_fat_pad_rows"],
+    "b,sp,n_valid,h,d,dm,nq,layer_scales",
+    [(2, 16, 16, 4, 8, 24, 2, False), (2, 16, 4, 16, 7, 112, 2, False),
+     (1, 136, 129, 4, 16, 64, 1, True), (1, 136, 129, 16, 7, 112, 1, True)],
+    ids=["jax_test_shapes", "tiny_fat_pad_rows", "ragged_two_blocks", "tiny_fat_ragged_two_blocks"],
 )
-def test_proj_matches_jax_kernel_interpret(b, sp, n_valid, h, d, dm):
+def test_proj_matches_jax_kernel_interpret(b, sp, n_valid, h, d, dm, nq, layer_scales):
     """The CPU path (the plain version) equals the JAX kernel run in
     interpret mode, fp32, on the valid rows."""
     rng = np.random.default_rng(3)
-    qkvf = _qkvf(rng, b, sp, n_valid, h, d)
-    wo = rng.standard_normal((h * d, dm)).astype(np.float32)
+    qkvf = _qkvf(rng, b, sp, n_valid, h, d, prescale_q=layer_scales)
+    wo = rng.standard_normal((h * d, dm)).astype(np.float32) * ((h * d) ** -0.5 if layer_scales else 1.0)
     bo = rng.standard_normal(dm).astype(np.float32)
     res = rng.standard_normal((b, sp, dm)).astype(np.float32)
     want = np.asarray(jattn.fat_vit_mha_packed_proj(
         jnp.asarray(qkvf), jnp.asarray(wo), jnp.asarray(bo), jnp.asarray(res), h, d,
-        nq=2, interpret=True))
+        nq=nq, interpret=True))
     attention.reset_launches()
     got = attention.fat_vit_mha_packed_proj(*map(torch.from_numpy, (qkvf, wo, bo, res)), h, d)
     assert attention.launches["fat_vit_mha_packed_proj"] == 0  # CPU: no kernel
@@ -75,8 +89,9 @@ def test_proj_plain_matches_kernels_7_then_2_in_bf16(h, d):
 def test_proj_wrapper_refusals(monkeypatch):
     """What the CUDA path refuses, checked before any launch: tensors on
     other devices, dtypes other than bf16, shapes that do not fit, fat
-    widths the kernel is not compiled for. Past the checks it launches
-    or raises: here, with no card, the build raises."""
+    widths, head counts and head or output widths the kernel is not
+    compiled for. Past the checks it launches or raises: here, with no
+    card, the build raises."""
     h, d, sp = 4, 16, 16
     c = attention.fat_width(d)
     bf = torch.bfloat16
@@ -97,8 +112,18 @@ def test_proj_wrapper_refusals(monkeypatch):
           torch.zeros((1, 8, 64), dtype=bf), 4, 40), ValueError, "compiled for"),
         ((qkvf, torch.zeros((h * d, 60), dtype=bf), torch.zeros(60, dtype=bf),
           torch.zeros((1, sp, 60), dtype=bf), h, d), ValueError, "multiple of 8"),
+        # the cluster kernel: two heads a CTA, at most 8 CTAs, and the
+        # head and output widths each fat width is compiled for
         ((torch.zeros((1, sp, 3 * 16), dtype=bf), torch.zeros((8, 64), dtype=bf), bo, res, 1, 8),
-         ValueError, "multiple of 16"),
+         ValueError, "even head count"),
+        ((torch.zeros((1, sp, 3 * 3 * c), dtype=bf), torch.zeros((3 * d, 48), dtype=bf),
+          torch.zeros(48, dtype=bf), torch.zeros((1, sp, 48), dtype=bf), 3, d), ValueError, "even head count"),
+        ((torch.zeros((1, sp, 3 * 18 * c), dtype=bf), torch.zeros((18 * d, 64), dtype=bf), bo, res, 18, d),
+         ValueError, "at most 8"),
+        ((qkvf, torch.zeros((h * d, 128), dtype=bf), torch.zeros(128, dtype=bf),
+          torch.zeros((1, sp, 128), dtype=bf), h, d), ValueError, "compiled for 32"),
+        ((torch.zeros((1, sp, 3 * 2 * 72), dtype=bf), torch.zeros((128, 128), dtype=bf),
+          torch.zeros(128, dtype=bf), torch.zeros((1, sp, 128), dtype=bf), 2, 64), ValueError, "compiled for 72"),
     ]
     for args, exc, match in cases:
         with pytest.raises(exc, match=match):
@@ -106,3 +131,32 @@ def test_proj_wrapper_refusals(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         attention.fat_vit_mha_packed_proj(qkvf, wo, bo, res, h, d)
     assert attention.launches["fat_vit_mha_packed_proj"] == 0
+
+
+def test_encoder_fat_through_kernel_8_equals_kernels_7_then_2(monkeypatch):
+    """The image tower's fat encoder with kernel 8 in the place of kernels 7
+    then 2 gives bit-equal output on the CPU, at tiny_fat_test_config in
+    bf16: kernel 8's plain version is kernel 2's on kernel 7's output, with
+    the same casts. (On the card the encoder keeps 7 then 2, which ran
+    faster on an H100; PERF.md.)"""
+    from meme_search_engine_tpu_torch.models import siglip
+
+    cfg = siglip.tiny_fat_test_config()
+    params = siglip.prepare_params(siglip.init_params(cfg, torch.Generator().manual_seed(5), "cpu"), cfg)
+    blocks, h = params["img"]["blocks"], cfg.num_heads
+    dh, n_valid = cfg.width // h, cfg.num_patches
+    sp = (n_valid + 15) // 16 * 16
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, sp, cfg.width)).astype(np.float32)).to(torch.bfloat16)
+    want = siglip._encoder_fat(x, blocks, h, n_valid)
+    fused_calls = []
+
+    def proj(qkvf, w, b, res):  # kernel 2's place, on what kernel 7's place passed on
+        fused_calls.append(qkvf.shape)
+        return attention.fat_vit_mha_packed_proj(qkvf, w, b, res, h, dh)
+
+    monkeypatch.setattr(siglip, "fat_vit_mha_packed", lambda qkvf, n_heads, head_dim: qkvf)
+    monkeypatch.setattr(siglip, "matmul_residual", proj)
+    got = siglip._encoder_fat(x, blocks, h, n_valid)
+    assert len(fused_calls) == cfg.depth and got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
