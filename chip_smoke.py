@@ -12,6 +12,9 @@ kernel alone (see ``fat_bench``), for an A/B of two checkouts;
 ``--proj-bench [ROOT]`` the fused attention, ADC and fused attention +
 o-projection kernels alone (see ``mha_bench``, ``adc_bench`` and
 ``proj_bench``), each for an A/B of two checkouts.
+``python3 chip_smoke.py --disk-n N`` runs the whole script with the disk
+phase at n = N (``--disk-n 1000000`` is the deployment uncut; it takes
+about 1,100 s).
 
 Phases, in order; any failure exits non-zero with no result line:
 
@@ -93,28 +96,43 @@ Phases, in order; any failure exits non-zero with no result line:
      CPU's (any that differ must be near ties: the CPU's best sim within
      1e-4 of the sim of the card's code), and 2 queries' ADC scores
      against the CPU's at 1e-4.
-   - The shard build, as the JAX package's tools/scale_bench.py runs it
-     at the 1e6 deployment (``shard_build``): 1e6 vectors of d = 1152 by
-     its hierarchical recipe, drawn on the card; the port's balanced
-     k-means (42 clusters, 200k sample, 120 annealing steps); the top-2
-     split; ``build_shard_graph`` on shard 0 with 1,024 OOD queries, R 64,
-     L 192, maxc 750, batch 1,024, bf16, each build stage timed. The
-     graph must be well formed and stitched, reach self-recall@1 >= 0.95
-     and recall@10 >= 0.80 (ann_bench's protocol over 512 base rows).
-     One round's greedy search runs again under torch.profiler: the
-     card's time a hop against the build's wall time a hop.
-     One prune of that round's pools is profiled the same way.
-     64 nodes searched and pruned on the card must agree with the CPU:
-     in bf16, pool ids on >= 99% and scores within 1e-5, and every pruned
-     row that differs must hold a decision within 1e-5 of its threshold;
-     in int8, whose sums are exact integers, everything must be equal.
-     ``gather_dot`` must launch once per hop, round (the merge of the
-     existing neighbours), re-prune chunk and stitch, ``gather_gram`` once
-     per prune (re-prunes included), ``gather_rows`` and every other kernel
-     never; no earlier path may launch either.
+   - The large-scale deployment (``disk``), at docs/scale1m_report.json's
+     d = 1152 in 42 shards with n cut from 1e6 to 4e5 (``DISK_N``: the
+     script's time limit), through the port's ``tools/scale_bench.py``
+     as a user runs it (after a check of the free disk space), in a
+     temporary workdir under ``build/`` deleted at the end: the
+     hierarchical synthetic dump, balanced k-means on the card, the top-2
+     split, every shard's ``build_shard`` with 1,024 OOD queries (R/L/maxc
+     64/192/750, batch 1,024, bf16), OPQ 64x256 on a 100k sample, the merge
+     and the pack into 4096-B records (``--frugal-disk``), QPS at 1, 2 and 4
+     threads and eval recall@20 against the exact oracle (search list 500,
+     beamwidth 4, 256 serve and 512 eval queries), each stage timed. Each
+     shard's build must launch ``gather_dot`` once a hop, round (the merge
+     of the existing neighbours), re-prune chunk and stitch product,
+     ``gather_gram`` once a prune (re-prunes included), ``gather_rows`` and
+     every other kernel never; every shard built and stitched; the merged
+     adjacency well formed; ``index.msgpack`` counting n records and the
+     dead ones a scan of every record finds; 4,096 records equal to the
+     flat corpus and the merge; the index open with ``NativeNav``; the
+     native beam search equal to the numpy loop on 16 queries (ids and
+     counters, scores within 1e-5); recall@20 >= 0.90. Then the port's
+     disk query server (``make_app`` with the engine's text tower as its
+     in-process embedder) over HTTP answers 1, 7 and 16 concurrent text
+     queries and a fused one (weights 1, 0.5, -1), launching ``fused_mha``
+     27 times a bucket and nothing else, each answer's ids equal to
+     ``DiskIndex.search`` on its fused vector; 64 single text queries are
+     timed, embed and search apart. Then the checks of shard 0 as it was
+     built (``shard0_checks``): the graph well formed and stitched,
+     self-recall@1 >= 0.95 and recall@10 >= 0.80 (ann_bench's protocol
+     over 512 base rows); one round's greedy search and one prune under
+     torch.profiler (the card's time a hop against the build's wall time
+     a hop); 64 nodes searched and pruned on the card against the CPU: in
+     bf16, pool ids on >= 99% and scores within 1e-5, and every pruned row
+     that differs must hold a decision within 1e-5 of its threshold; in
+     int8, whose sums are exact integers, everything must be equal.
 5. One JSON line with every kernel's numbers, one with the quantizer
-   path's, one with the graph build's, one with the service's, then the
-   card's name and power limit, then ``{"ok": true, "device": {...}}`` as
+   path's, one with the service's, one with the disk deployment's, then
+   the card's name and power limit, then ``{"ok": true, "device": {...}}`` as
    the last line.
 """
 
@@ -163,6 +181,19 @@ PEAK_FP32 = 67e12
 # them images embedded by the engine; a search answer may differ from the
 # CPU's exact top-k only by near ties within this
 SERVICE_N, SERVICE_IMAGES, NEAR_TIE_SEARCH = 100_000, 512, 1e-5
+# the large-scale deployment of docs/scale1m_report.json: d = 1152 in 42
+# shards, every width and parameter of that run, with n cut from 1e6 to
+# 4e5: at 1e6 the deployment alone ran 910 s and the script would have
+# taken about 1,100 s of its 1,200 s limit on an H100 (PERF.md, §4)
+DISK_N, DISK_CLUSTERS, DISK_CUT = 400_000, 42, "n 1e6 -> 4e5: the script's time limit"
+# free space its workdir needs per 1e6 records: the dump and the shard
+# inputs (about 7 GiB), then vectors.f16 and index.bin (about 6.4 GiB), and
+# headroom
+DISK_FREE_GIB = 16
+# eval recall@20 floor (the JAX package's recorded build reached 0.966)
+DISK_MIN_RECALL = 0.90
+# the native beam search's exact scores against the numpy loop's
+NATIVE_SCORE_TOL = 1e-5
 
 
 def log(*a):
@@ -215,27 +246,6 @@ def compare(got, want, tol, rows=None):
         return float("inf"), False
     d = (g - w).abs()
     return float(d.max()), bool((d <= tol + tol * w.abs()).all())
-
-
-def hier_corpus(n: int, d: int, device, seed: int = 0, chunk: int = 100_000):
-    """(n, d) fp32 unit vectors on ``device`` by the recipe of the JAX
-    package's tools/scale_bench.py:28-62: 64 super centres, n/500 fine
-    centres around them at scale 0.55, each point a fine centre plus noise
-    at 0.45, L2-normalised; drawn on the device from ``seed``."""
-    import torch
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    supers = torch.randn((64, d), generator=g, device=device)
-    n_fine = max(64, n // 500)
-    fines = supers[torch.arange(n_fine, device=device) % 64] + 0.55 * torch.randn(
-        (n_fine, d), generator=g, device=device)
-    x = torch.empty((n, d), device=device)
-    for s in range(0, n, chunk):
-        m = min(chunk, n - s)
-        c = torch.randint(0, n_fine, (m,), generator=g, device=device)
-        xs = fines[c] + 0.45 * torch.randn((m, d), generator=g, device=device)
-        x[s : s + m] = xs / xs.norm(dim=1, keepdim=True)
-    return x
 
 
 def gathered_dots(dev, gen, d: int = 1152, n_huge: int = 1_000_000) -> dict:
@@ -398,74 +408,407 @@ def gathered_dots(dev, gen, d: int = 1152, n_huge: int = 1_000_000) -> dict:
     return results
 
 
-def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
-                n: int = 1_000_000, d: int = 1152) -> dict:
-    """The per-shard Vamana build as the JAX package's scale_bench runs it
-    at the 1e6 deployment: k-means 42 over a 200k sample, the top-2 split,
-    then shard 0 with 1,024 OOD queries at R/L/maxc 64/192/750, batch
-    1,024. Checks the graph, its recall (ann_bench's protocol), the card
-    against the CPU on 64 nodes and the gather's launches; returns the
-    ``graph`` JSON object."""
+def disk(engine, dev, timed, launch_counts, reset_counts, check_counts,
+         n: int = DISK_N, clusters: int = DISK_CLUSTERS, free_gib: float = DISK_FREE_GIB) -> dict:
+    """The large-scale deployment of docs/scale1m_report.json end to end,
+    through the port's ``tools/scale_bench.py`` as a user runs it, in a
+    temporary workdir under ``build/`` that is deleted at the end: the
+    hierarchical synthetic dump, k-means 42 on the card, the top-2 split,
+    every shard's ``build_shard`` (1,024 OOD queries, R/L/maxc 64/192/750,
+    batch 1,024, bf16), OPQ 64x256, the merge and the pack into 4096-B
+    records, served QPS at 1, 2 and 4 threads and the eval against the
+    exact oracle (512 queries; 64 more over every shard). Then the checks
+    on what it left, the disk query server over HTTP with the engine's
+    text tower as its embedder, and the checks of the old shard build on
+    shard 0 (``shard0_checks``). Returns the ``disk`` JSON object."""
+    import shutil
+    import tempfile
+
+    top = os.path.join(ROOT, "build")
+    os.makedirs(top, exist_ok=True)
+    free, need = shutil.disk_usage(top).free / 2**30, free_gib * n / 1e6
+    if free < need:
+        fail(f"disk: {free:.1f} GiB free under {top}; the deployment at n = {n} needs {need:.1f}")
+    wd = tempfile.mkdtemp(prefix="disk_smoke_", dir=top)
+    try:
+        return _disk(engine, dev, timed, launch_counts, reset_counts, check_counts, n, clusters, wd)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+
+
+def _disk(engine, dev, timed, launch_counts, reset_counts, check_counts, n, clusters, wd) -> dict:
+    import asyncio
+    import contextlib
+
     import torch
 
-    from meme_search_engine_tpu_torch.index import kmeans, vamana
-    from meme_search_engine_tpu_torch.ops import mips
-    from meme_search_engine_tpu_torch.pipeline import build_shard
+    from meme_search_engine_tpu_torch.index import vamana
+    from meme_search_engine_tpu_torch.index.disk_index import DiskIndex
+    from meme_search_engine_tpu_torch.index.native_io import PythonReader
+    from meme_search_engine_tpu_torch.pipeline import build_shard, processor
+    from meme_search_engine_tpu_torch.pipeline.formats import PackedIndexEntry
+    from meme_search_engine_tpu_torch.serving.client import InProcessEmbedder
+    from meme_search_engine_tpu_torch.serving.engine import pow2_buckets
+    from meme_search_engine_tpu_torch.tools import scale_bench
 
-    k_clusters, n_ood = 42, 1024
-    r, l, maxc, batch = 64, 192, 750, 1024
+    r, l, maxc, batch, n_ood = 64, 192, 750, 1024, 1024
+    search_list, beamwidth, k = 500, 4, 20
+    d = scale_bench.D_EMB
+    cfg = engine.cfg
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    x = hier_corpus(n, d, dev)
-    torch.cuda.synchronize()
-    t_corpus = time.perf_counter() - t0
-    # the rows are independent draws, so the first 200k are a uniform
-    # sample; fp16, as the reference's sample file holds it
-    t0 = time.perf_counter()
-    centroids = kmeans.balanced_kmeans(x[:200_000].half().float(), k_clusters, max_iter=120, seed=0)
-    t_kmeans = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    top2 = kmeans.assign_top_k(x, centroids)
-    counts = torch.bincount(top2.reshape(-1), minlength=k_clusters).cpu().numpy()
-    rows = (top2 == 0).any(dim=1).nonzero()[:, 0]
-    base = x[rows].half().float().cpu().numpy()  # fp16, as the shard file holds it
-    torch.cuda.synchronize()
-    t_split = time.perf_counter() - t0
-    del x, top2, rows
-    torch.cuda.empty_cache()
-    balance = {"max_over_ideal": float(counts.max() / (2 * n / k_clusters)),
-               "p95_over_median": float(np.percentile(counts, 95) / np.median(counts))}
-    n_base = len(base)
-    log(f"graph: corpus {n} x {d} in {t_corpus:.1f} s; k-means {k_clusters} over {min(n, 200_000)} in "
-        f"{t_kmeans:.1f} s, top-2 counts max/ideal {balance['max_over_ideal']:.3f}, p95/median "
-        f"{balance['p95_over_median']:.3f}; split in {t_split:.1f} s: shard 0 holds {n_base} rows")
-    qrng = np.random.default_rng(7)
-    queries = qrng.standard_normal((n_ood, d)).astype(np.float32)
-    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    zero = {name: 0 for name in launch_counts()}
 
+    # the stages the tool's report does not split, on the host clock; the
+    # merge's inputs and output and shard 0's build are kept for the checks
     stages: dict = {}
+    kept: dict = {}
+
+    def stage(owner, name, key):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[key] = stages.get(key, 0.0) + time.perf_counter() - t0
+            if key == "merge":
+                kept[key] = (a, out)
+            return out
+
+        setattr(owner, name, wrapper)
+        return owner, name, fn
+
+    build_stages: dict = {}
     calls: dict = {}
     names = ("_batched_greedy_search", "_merge_pool", "_batched_robust_prune", "_insert_back_edges",
              "_reprune_overflow", "_score_sort_prune", "robust_stitch", "medioid_dev")
-    wrapped = [(n_, timed(vamana, n_, stages, calls)) for n_ in names]
+    wrapped = [(vamana, n_, timed(vamana, n_, build_stages, calls)) for n_ in names]
+    shards: list = []
+    shard0: dict = {}
+    real_build = build_shard.build_shard_graph
+
+    def build(base, query_vectors=None, **kw):
+        """build_shard's graph build, with this shard's launches checked:
+        gather_dot once a hop, a round (the existing neighbours), a
+        re-prune chunk and a product the stitch asks for; gather_gram
+        once a prune, the re-prunes' included; nothing else."""
+        before, c0 = launch_counts(), dict(calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph, med = real_build(base, query_vectors, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {key: v - before[key] for key, v in launch_counts().items()}
+        c = {key: v - c0.get(key, 0) for key, v in calls.items()}
+        i = len(shards)
+        n_total = len(base) + len(query_vectors)
+        if c.get("robust_stitch") != 1 or graph.shape != (n_total, r):
+            fail(f"shard build {i}: {c.get('robust_stitch')} stitches, graph {graph.shape}")
+        if n_total > 100_000:  # build_graph checks its device mirror up to 1e5 nodes
+            fail(f"shard build {i} of {n_total} nodes: build_graph skipped its device-mirror check")
+        check_counts(f"disk (shard build {i})", got, {
+            **zero, "gather_dot": c["hops"] + c["_merge_pool"] + c.get("_score_sort_prune", 0)
+            + c.get("stitch_products", 0), "gather_gram": c["_batched_robust_prune"],
+        }, 1)
+        shards.append({"nodes": n_total, "wall_s": wall, "hops": c["hops"],
+                       "prunes": c["_batched_robust_prune"], "gather_dot": got["gather_dot"],
+                       "gather_gram": got["gather_gram"]})
+        if i == 0:
+            shard0.update(base=np.asarray(base, np.float32), queries=np.asarray(query_vectors, np.float32),
+                          graph=graph, med=med, wall=wall, stages=dict(build_stages), calls=c,
+                          launches=got)
+        return graph, med
+
+    build_shard.build_shard_graph = build
+    wrapped += [stage(scale_bench, "_stage_dump", "dump"),
+                stage(processor, "merge_shard_adjacency", "merge"),
+                stage(processor, "pack_index", "pack_index")]
+    argv = ["--workdir", wd, "--n", str(n), "--clusters", str(clusters), "--r", str(r), "--l", str(l),
+            "--maxc", str(maxc), "--build-batch", str(batch), "--build-expand", "2",
+            "--ood-queries", str(n_ood), "--pq-chunks", "64", "--pq-centroids", "256",
+            "--serve-queries", "256", "--eval-queries", "512", "--search-list", str(search_list),
+            "--beamwidth", str(beamwidth), "--frugal-disk", "--device", dev.type]
+    log(f"disk: scale_bench {' '.join(argv)} (its log goes to stderr)")
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    graph, med = build_shard.build_shard_graph(
-        base, queries, r=r, l=l, maxc=maxc, batch_size=batch, build_expand=2,
-        corpus_dtype="bf16", seed=0, pad_to=0,
-    )
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
-    for n_, fn in wrapped:
-        setattr(vamana, n_, fn)
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            scale_bench.main(argv)
+    finally:
+        build_shard.build_shard_graph = real_build
+        for owner, name, fn in wrapped:
+            setattr(owner, name, fn)
+    tool_s = time.perf_counter() - t0
+    run_launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    n_total = n_base + n_ood
-    rounds = -(-n_total // batch)
-    log(f"graph: built {n_total} nodes ({rounds} rounds) in {wall:.1f} s; stages (s) "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
-        + f"; calls {calls}; launches {launches}; peak memory {peak:.1f} GiB")
+    with open(os.path.join(wd, "report.json")) as f:
+        report = json.load(f)
+    stage_s = {**report["stages_s"], **stages}
+    build_walls = [s["wall_s"] for s in shards]
+    log(f"disk: the tool ran {tool_s:.1f} s; stages (s) "
+        + ", ".join(f"{key} {v:.2f}" for key, v in stage_s.items())
+        + f"; {len(shards)} shard builds of {min(s['nodes'] for s in shards)}-"
+        f"{max(s['nodes'] for s in shards)} nodes in {min(build_walls):.1f}-{max(build_walls):.1f} s "
+        f"(median {np.median(build_walls):.1f}); launches {run_launches}; peak memory {peak:.1f} GiB")
+    log(f"disk: QPS at 1/2/4 threads {report['qps_vs_threads']}, 1 thread rewarmed "
+        f"{report['qps_1thread_rewarmed']}; eval {report['eval']}")
+
+    # every shard built and stitched, each build's launches checked above;
+    # the whole run launched the gathered dots and nothing else
+    if len(shards) != clusters or report.get("shards_built") != clusters:
+        fail(f"{len(shards)} shard builds, report {report.get('shards_built')}, expected {clusters}")
+    check_counts("disk (scale_bench)", run_launches, {
+        **zero, "gather_dot": sum(s["gather_dot"] for s in shards),
+        "gather_gram": sum(s["gather_gram"] for s in shards)}, 1)
+    shard_dir = os.path.join(wd, "shards")
+    for s in range(clusters):
+        if not os.path.exists(os.path.join(shard_dir, f"shard_{s}.graph")):
+            fail(f"shard {s} has no graph file")
+    (shard_outputs, n_merged), (vertices, node_shards) = kept["merge"][0], kept["merge"][1]
+    for header, adj in shard_outputs:
+        m = header.max
+        if len(adj) != m or not 0 <= header.medioid < m or len(header.mapping) != m:
+            fail(f"shard {header.id}: {len(adj)} rows, max {m}, medioid {header.medioid}")
+        flat = np.concatenate(adj)
+        if flat.size and flat.max() >= m:
+            fail(f"shard {header.id}: base->query edges after the stitch")
+    assignment = np.load(os.path.join(wd, "assignment.npy"))
+    sizes = np.bincount(assignment.ravel(), minlength=clusters)
+    balance = {"max_over_ideal": float(sizes.max() / (2 * n / clusters)),
+               "p95_over_median": float(np.percentile(sizes, 95) / np.median(sizes))}
+
+    # the merged adjacency: ids in range, no self-edges, no duplicates,
+    # every node with an edge and in two distinct shards
+    rows, cnt = vertices.rows, vertices.counts
+    live = np.arange(rows.shape[1])[None, :] < cnt[:, None]
+    ids = np.where(live, rows, -1)
+    srt = np.sort(ids, axis=1)
+    merged_ok = {
+        "n": int(n_merged == n == len(cnt)),
+        "in_range": int((ids[live] >= 0).all() and (ids[live] < n).all()),
+        "no_self_edges": int(not (ids == np.arange(n)[:, None]).any()),
+        "no_duplicates": int(not ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()),
+        "min_degree": int(cnt.min()),
+        "two_shards": int((node_shards.counts == 2).all()
+                          and (node_shards.rows[:, 0] != node_shards.rows[:, 1]).all()),
+    }
+    degree = {"mean": float(cnt.mean()), "max": int(cnt.max()), "cap": int(rows.shape[1])}
+    del live, ids, srt
+    log(f"disk: merged adjacency {merged_ok}, degree {degree}; top-2 split max/ideal "
+        f"{balance['max_over_ideal']:.3f}, p95/median {balance['p95_over_median']:.3f}")
+    if not all(merged_ok.values()):
+        fail(f"merged adjacency malformed: {merged_ok}")
+
+    # the index: header counts, the dead records counted by a scan of every
+    # record, and 4,096 records against the flat corpus and the merge
+    index_dir = os.path.join(wd, "index")
+    idx = DiskIndex(index_dir)
+    pad = idx.header.record_pad_size
+    recs = np.memmap(os.path.join(index_dir, "index.bin"), np.uint8, "r", shape=(n, pad))
+    dead_pat, dead, longest = b"\xa3url\xa0", set(), 0
+    for s0 in range(0, n, 65536):
+        blob = recs[s0 : s0 + 65536].tobytes()
+        lens = np.frombuffer(blob, "<u4")[:: pad // 4]
+        longest = max(longest, int(lens.max()))
+        pos = blob.find(dead_pat)
+        while pos >= 0:
+            dead.add(s0 + pos // pad)
+            pos = blob.find(dead_pat, pos + 1)
+    dead = {i for i in dead if PackedIndexEntry.unpack(bytes(recs[i])).url == ""}
+    flat = np.memmap(os.path.join(wd, "vectors.f16"), np.float16, "r", shape=(n, d))
+    sample = np.linspace(0, n - 1, 4096).astype(np.int64)
+    bad = []
+    for i, e in zip(sample.tolist(), idx.read_nodes(sample.tolist())):
+        if (e.id != i or not np.array_equal(e.vector.astype(np.float16), flat[i])
+                or list(e.vertices) != vertices[i].tolist() or list(e.shards) != node_shards[i].tolist()
+                or e.url not in ("", f"https://cdn.example.com/{i}.png")):
+            bad.append(i)
+    log(f"disk: index.msgpack counts {idx.header.count} records, {idx.header.dead_count} dead; "
+        f"the scan finds {len(dead)} dead, the longest payload {longest} B of {pad}; "
+        f"{len(sample) - len(bad)} of {len(sample)} sampled records equal the corpus and the merge")
+    if idx.header.count != n or idx.header.dead_count != len(dead) or longest > pad - 4 or bad:
+        fail(f"index: count {idx.header.count}, dead {idx.header.dead_count} against {len(dead)}, "
+             f"longest {longest}, records differing {bad[:8]}")
+    del recs, flat
+
+    # the native beam search against the numpy loop on 16 of the serve queries
+    if idx._nav is None:
+        fail("the disk index opened without NativeNav")
+    _supers, fines = scale_bench._hier_centers(n)
+    qrng = np.random.default_rng(1234)
+    qs = scale_bench._hier_points(fines, qrng.integers(0, len(fines), 256), qrng)
+    idx_py = DiskIndex(index_dir, io_backend=PythonReader(os.path.join(index_dir, "index.bin"), pad))
+    native_gap, t_nat, t_py = 0.0, 0.0, 0.0
+    for qi in range(16):
+        kw = dict(beamwidth=beamwidth, search_list=search_list, dedup=bool(qi % 2))
+        t0 = time.perf_counter()
+        rn, cn = idx.search(qs[qi], k, **kw)
+        t1 = time.perf_counter()
+        rp, cp = idx_py.search(qs[qi], k, **kw)
+        t_nat, t_py = t_nat + t1 - t0, t_py + time.perf_counter() - t1
+        if [x.id for x in rn] != [x.id for x in rp] or (cn.node_reads, cn.pq_comparisons) != (
+                cp.node_reads, cp.pq_comparisons):
+            fail(f"query {qi}: the native search and the numpy loop disagree")
+        native_gap = max(native_gap, float(np.abs(np.subtract([x.score for x in rn],
+                                                                [x.score for x in rp])).max()))
+    log(f"disk: 16 queries, native search equal to the numpy loop (ids, counters; largest score "
+        f"gap {native_gap:.2e}); {t_nat / 16 * 1e3:.2f} ms against {t_py / 16 * 1e3:.1f} ms a query")
+    if native_gap > NATIVE_SCORE_TOL:
+        fail(f"native and numpy scores differ by {native_gap}")
+    del idx_py
+
+    ev = report["eval"]
+    if not ev["recall_at_20"] >= DISK_MIN_RECALL:
+        fail(f"eval recall@20 {ev['recall_at_20']} below {DISK_MIN_RECALL}")
+
+    # where the served recall goes, over the eval queries: whether the
+    # start shard (the k-means) holds each query's true top 20, and the
+    # same beam search with exact scores on its frontier in place of the
+    # OPQ's ADC (the graph alone)
+    oracle = np.load(os.path.join(wd, "eval_oracle.npz"))
+    flat = np.memmap(os.path.join(wd, "vectors.f16"), np.float16, "r", shape=(n, d))
+    idx_exact = DiskIndex(index_dir, io_backend=PythonReader(os.path.join(index_dir, "index.bin"), pad))
+    parts = {"served": [0, 0], "exact_frontier": [0, 0]}  # hits in the top 20, first answers past 1000
+    in_start = 0
+    for q, gt in zip(oracle["queries"], oracle["gt"]):
+        in_start += int((assignment[gt[:k]] == idx.select_shard(q)).any(axis=1).sum())
+        idx_exact._adc = lambda _lut, ids, q=q: flat[ids].astype(np.float32) @ q
+        for key, index in (("served", idx), ("exact_frontier", idx_exact)):
+            res, _c = index.search(q, k, beamwidth=beamwidth, search_list=search_list, dedup=False)
+            parts[key][0] += len({x.id for x in res} & set(gt[:k].tolist()))
+            parts[key][1] += int(not res or res[0].id not in gt)
+    n_eval = len(oracle["queries"])
+    breakdown = {"queries": n_eval, "top20_in_start_shard": in_start / (n_eval * k), **{
+        key: {"recall_at_20": h / (n_eval * k), "first_answer_past_1000": m} for key, (h, m) in parts.items()}}
+    log(f"disk: recall breakdown over {n_eval} eval queries: {breakdown}")
+    if round(breakdown["served"]["recall_at_20"], 4) != ev["recall_at_20"]:
+        fail(f"served recall {breakdown['served']} against the report's {ev}")
+    del idx_exact, flat
+
+    # the disk query server over HTTP, with the engine's text tower as its
+    # in-process embedder: 1, 7 and 16 concurrent text queries, then one
+    # fused query; the launches counted over the requests alone
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from meme_search_engine_tpu_torch.serving.disk_query_server import make_app
+
+    embedder = InProcessEmbedder(engine)
+    words = ["meme", "cat", "dog", "gpu", "tpu", "funny", "sad", "frog", "reaction", "image"]
+    trng = np.random.default_rng(11)
+
+    def text():
+        return " ".join(trng.choice(words, size=trng.integers(1, 12)))
+
+    rounds = [[text() for _ in range(c)] for c in (1, 7, 16)]
+    fused_terms = [(text(), 1.0), (text(), 0.5), (text(), -1.0)]
+    app = make_app(idx, embedder, beamwidth=beamwidth, search_list=search_list)
+
+    async def drive():
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            init = await (await client.get("/")).json()
+            answers = []
+            for texts in rounds:
+                resps = await asyncio.gather(*[
+                    client.post("/", json={"terms": [{"text": t}], "k": k}) for t in texts])
+                answers.append([await rsp.json() for rsp in resps])
+            rsp = await client.post("/", json={
+                "terms": [{"text": t, "weight": w} for t, w in fused_terms], "k": k})
+            return init, answers, await rsp.json()
+        finally:
+            await client.close()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    init, answers, fused = asyncio.run(drive())
+    server_s = time.perf_counter() - t0
+    n_buckets = sum(len(pow2_buckets(c, engine.max_batch)) for c in [1] * 24 + [len(fused_terms)])
+    server_launches = launch_counts()
+    check_counts("disk (server)", server_launches, {**zero, "fused_mha": cfg.text_depth}, n_buckets)
+    if init != {"n_total": n - idx.header.dead_count, "predefined_embedding_names":
+                ["Useful", "Meme", "Aesthetic", "Time"], "d_emb": d}:
+        fail(f"frontend init {init}")
+
+    loop = asyncio.new_event_loop()
+
+    def direct(qvec):
+        res, _c = idx.search(qvec, k, beamwidth=beamwidth, search_list=search_list)
+        return [x.id for x in res if x.url], [x.score for x in res if x.url]
+
+    def served(body):
+        ms = body["matches"]
+        return [int(m_[1].rsplit("/", 1)[1].split(".")[0]) for m_ in ms], [m_[0] for m_ in ms]
+
+    server_gap = 0.0
+    pairs = [([t], [1.0], a) for texts, ans in zip(rounds, answers) for t, a in zip(texts, ans)]
+    pairs.append(([t for t, _ in fused_terms], [w for _, w in fused_terms], fused))
+    for texts, weights, body in pairs:
+        embs = loop.run_until_complete(embedder.embed_texts(texts))
+        qvec = np.zeros((d,), np.float32)
+        qvec += np.einsum("nd,n->d", embs, np.asarray(weights, np.float32))
+        (want, want_s), (got, got_s) = direct(qvec), served(body)
+        if got != want or len(got) != k:
+            fail(f"server answer for {texts} {got[:5]}... differs from DiskIndex.search {want[:5]}...")
+        server_gap = max(server_gap, float(np.abs(np.subtract(got_s, want_s)).max()))
+    log(f"disk: the server answered 1, 7 and 16 concurrent text queries and a fused one (weights 1, "
+        f"0.5, -1) in {server_s:.1f} s, {n_buckets} text buckets, each answer's {k} ids equal to "
+        f"DiskIndex.search on its fused vector (largest score gap {server_gap:.2e})")
+
+    # one text query at a time, 64 of them: the text tower at B = 1 (with
+    # the embedder's fp16 round trip), then the beam search
+    embed_ms, search_ms = [], []
+    for _ in range(64):
+        t0 = time.perf_counter()
+        e = loop.run_until_complete(embedder.embed_texts([text()]))[0]
+        t1 = time.perf_counter()
+        idx.search(e, k, beamwidth=beamwidth, search_list=search_list)
+        embed_ms.append((t1 - t0) * 1e3)
+        search_ms.append((time.perf_counter() - t1) * 1e3)
+    loop.close()
+    total_ms = np.add(embed_ms, search_ms)
+    latency = {part: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
+               for part, v in (("total_ms", total_ms), ("embed_ms", embed_ms), ("search_ms", search_ms))}
+    log(f"disk: single text query (64, host clock): " + ", ".join(
+        f"{part} p50 {v['p50']:.2f} p99 {v['p99']:.2f}" for part, v in latency.items()))
+
+    checks = shard0_checks(dev, shard0, r, l, maxc, batch)
+    phase_s = time.perf_counter() - t_phase
+    log(f"disk: the phase took {phase_s:.1f} s")
+    return {
+        "n": n, "d": d, "clusters": clusters,
+        "cut": None if n >= 1_000_000 else DISK_CUT if n == DISK_N else f"n 1e6 -> {n}",
+        "search_list": search_list,
+        "beamwidth": beamwidth, "tool_s": tool_s, "stages_s": stage_s,
+        "shard_build_s": {"min": min(build_walls), "median": float(np.median(build_walls)),
+                          "max": max(build_walls), "sum": float(sum(build_walls))},
+        "shards": shards, "balance": balance, "merged": merged_ok, "degree": degree,
+        "count": idx.header.count, "dead": idx.header.dead_count, "longest_payload": longest,
+        "launches": run_launches, "peak_gib": peak, "qps_vs_threads": report["qps_vs_threads"],
+        "qps_1thread_rewarmed": report["qps_1thread_rewarmed"], "eval": ev, "recall_breakdown": breakdown,
+        "native_vs_numpy_max_score_gap": native_gap, "server_s": server_s,
+        "server_text_buckets": n_buckets, "server_launches": server_launches,
+        "server_vs_direct_max_score_gap": server_gap,
+        "single_text_query": latency, "shard0": checks, "phase_s": phase_s,
+    }
+
+
+def shard0_checks(dev, shard0: dict, r: int, l: int, maxc: int, batch: int) -> dict:
+    """The disk phase's shard 0, as it was built: its graph's structure,
+    its recall by ann_bench's protocol over 512 base rows, one round's
+    greedy search and one prune profiled, and 64 nodes searched and pruned
+    on the card against the CPU in bf16 and int8."""
+    import torch
+
+    from meme_search_engine_tpu_torch.index import vamana
+    from meme_search_engine_tpu_torch.ops import mips
+
+    base, queries, graph, med = shard0["base"], shard0["queries"], shard0["graph"], shard0["med"]
+    stages, calls = shard0["stages"], shard0["calls"]
+    n_base = len(base)
+    n_total = n_base + len(queries)
 
     # structure
     if graph.shape != (n_total, r) or graph.min() < -1 or graph.max() >= n_total:
@@ -475,18 +818,6 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
     degrees = (graph[:n_base] >= 0).sum(axis=1)
     if degrees.min() < 1 or not 0 <= med < n_base:
         fail(f"base degree min {degrees.min()}, medioid {med}")
-    if n_total > 100_000:  # build_graph checks its device mirror up to 1e5 nodes
-        fail(f"shard of {n_total} nodes: build_graph skipped its device-mirror check")
-    # gather_dot: each hop, each round's merge of the existing neighbours
-    # (_merge_pool), each re-prune chunk's scores, and each product the
-    # stitch asked for; gather_gram: each prune, the re-prunes' included
-    expected_dot = (calls["hops"] + calls["_merge_pool"] + calls["_score_sort_prune"]
-                    + calls.get("stitch_products", 0))
-    check_counts("graph", launches, {
-        "gather_dot": expected_dot, "gather_gram": calls["_batched_robust_prune"], "gather_rows": 0,
-        "ln_matmul": 0, "matmul_residual": 0, "ln_mlp_residual": 0,
-        "fat_vit_mha": 0, "fused_mha": 0, "adc_scores": 0, "fat_vit_mha_packed_proj": 0,
-    }, 1)
 
     # quality, by ann_bench's protocol over 512 base rows
     vectors = np.concatenate([base, queries])
@@ -494,13 +825,13 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
     sample = np.random.default_rng(1).permutation(n_base)[:512]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _s, ids, steps = vamana.search(vectors, graph, base[sample], 10, cfg)
+    _s, ids, steps = vamana.search(vectors, graph, base[sample], 10, cfg, device=dev)
     qps = len(sample) / (time.perf_counter() - t0)
     self_recall = float((ids[:, 0] == sample).mean())
     exact = mips.mips_topk(torch.from_numpy(base.astype(np.float16)).to(dev),
                            torch.from_numpy(base[sample]).to(dev), 10)[1].cpu().numpy()
     recall10 = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10 for a, b in zip(ids, exact)]))
-    log(f"graph: search of {len(sample)} base rows, k 10, L {l}: self-recall@1 {self_recall:.4f}, "
+    log(f"disk, shard 0: search of {len(sample)} base rows, k 10, L {l}: self-recall@1 {self_recall:.4f}, "
         f"recall@10 {recall10:.4f}, {qps:.1f} QPS, {steps} hops")
     if ids.max() >= n_base:
         fail("search returned an OOD query node")
@@ -536,7 +867,7 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
                 "device_s": busy, "build_hop_wall_ms": hop_wall_ms,
                 "device_ms_per_hop": busy / round_hops * 1e3 if on_card else None,
                 "top_device_ms_per_hop": {k[:100]: us / round_hops / 1e3 for k, us in top}}
-    log(f"graph: one round's greedy search profiled: {round_hops} hops in {round_wall:.3f} s "
+    log(f"disk, shard 0: one round's greedy search profiled: {round_hops} hops in {round_wall:.3f} s "
         f"(profiled), {len(on_card) / round_hops:.1f} device ops a hop, the card busy "
         + (f"{busy / round_hops * 1e3:.3f} ms a hop against {hop_wall_ms:.3f} ms of wall time a hop "
            f"in the build ({busy / round_hops * 1e3 / hop_wall_ms:.1%})" if on_card
@@ -564,7 +895,7 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
     profiled["prune"] = {"wall_ms": prune_wall * 1e3, "device_ops": len(on_card), "device_ms": prune_device,
                          "build_prune_wall_ms": prune_build_wall_ms,
                          "top_device_ms": {k[:100]: v for k, v in top}}
-    log(f"graph: one prune of that round's {batch} pools profiled: {prune_wall * 1e3:.2f} ms (profiled), "
+    log(f"disk, shard 0: one prune of that round's {batch} pools profiled: {prune_wall * 1e3:.2f} ms (profiled), "
         f"{len(on_card)} device ops, the card busy "
         + (f"{prune_device:.3f} ms; the build's prunes took {prune_build_wall_ms:.2f} ms of wall time "
            f"each" if on_card else "not measured (no device events)"))
@@ -637,7 +968,7 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
             "differing_rows_min_margin": margins,
         }
         agreement[dtype] = a
-        log(f"graph: card vs CPU, {dtype}, 64 nodes (card {t_card:.1f} s, CPU {t_cpu:.1f} s): pool ids "
+        log(f"disk, shard 0: card vs CPU, {dtype}, 64 nodes (card {t_card:.1f} s, CPU {t_cpu:.1f} s): pool ids "
             f"equal on {a['pool_ids_equal']:.6f} of {ci.size} ({a['pools_differing']} pools differ "
             f"somewhere), largest score gap {a['max_score_gap']:.2e}; pruned rows equal on "
             f"{a['pruned_rows_equal']:.4f}, on the card's pools {a['pruned_rows_equal_on_the_cards_pools']:.4f}; "
@@ -648,16 +979,14 @@ def shard_build(dev, timed, launch_counts, reset_counts, check_counts,
             ok = ok and a["pool_ids_equal"] == 1.0 and not differs.any()
         if not ok:
             fail(f"card and CPU disagree beyond near ties ({dtype}): {a}")
-    phase_s = time.perf_counter() - t_phase
-    log(f"graph: the phase took {phase_s:.1f} s")
+
+    rounds = -(-n_total // batch)
     return {
-        "n": n, "d": d, "clusters": k_clusters, "n_base": n_base, "n_total": n_total,
-        "corpus_s": t_corpus, "kmeans_s": t_kmeans, "split_s": t_split, "balance": balance,
-        "stages_s": stages, "wall_s": wall, "rounds": rounds, "hops": calls["hops"],
-        "prunes": calls["_batched_robust_prune"], "reprune_chunks": calls["_score_sort_prune"],
-        "launches": launches, "self_recall@1": self_recall, "recall@10": recall10, "qps": qps,
-        "search_hops": steps, "profiled_round": profiled, "card_vs_cpu_64_nodes": agreement,
-        "peak_gib": peak, "medioid": med, "phase_s": phase_s,
+        "n_base": n_base, "n_total": n_total, "wall_s": shard0["wall"], "stages_s": stages,
+        "rounds": rounds, "hops": calls["hops"], "prunes": calls["_batched_robust_prune"],
+        "reprune_chunks": calls.get("_score_sort_prune", 0), "launches": shard0["launches"],
+        "self_recall@1": self_recall, "recall@10": recall10, "qps": qps, "search_hops": steps,
+        "profiled_round": profiled, "card_vs_cpu_64_nodes": agreement, "medioid": med,
     }
 
 
@@ -1159,7 +1488,7 @@ def gather_bench() -> int:
     return 0
 
 
-def main() -> int:
+def main(disk_n: int = DISK_N) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1842,7 +2171,7 @@ def main() -> int:
 
     # the small-scale service on the same engine
     svc = service(engine, dev, reset_counts, launch_counts, check_counts)
-    del engine, worker, batch_out, text_out
+    del worker, batch_out, text_out
     torch.cuda.empty_cache()
 
     # quantizers at the deployment size of docs/scale1m_report.json, through
@@ -1959,7 +2288,11 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
 
-    graph = shard_build(dev, timed, launch_counts, reset_counts, check_counts)
+    # the large-scale deployment end to end, served through the engine's
+    # text tower
+    dk = disk(engine, dev, timed, launch_counts, reset_counts, check_counts, n=disk_n)
+    del engine
+    torch.cuda.empty_cache()
 
     # -- 5. result lines ----------------------------------------------------
     src = "meme_search_engine_tpu_torch/ops/csrc/"
@@ -2006,20 +2339,21 @@ def main() -> int:
                     "replaces": "meme_search_engine_tpu/ops/adc.py:91",
                     "launches": q_counts["adc_scores"], **results["adc_scores"]})
     # ms, plain_ms, library_ms and bound_ms at the hop shape; the *_prune
-    # keys at the prune shape; launches in the shard build
+    # keys at the prune shape; launches in the disk deployment's run (every
+    # shard's build)
     kernels.append({"name": "gather_rows", "route": "cuda", "source": src + "gather.cu",
                     "replaces": "meme_search_engine_tpu/ops/gather.py:89",
-                    "launches": graph["launches"]["gather_rows"], **results["gather_rows"]})
+                    "launches": dk["launches"]["gather_rows"], **results["gather_rows"]})
     # the gather fused into the dots the JAX package runs on its rows; the
     # times at the hop shape (gather_dot) and the prune shape (gather_gram)
     kernels.append({"name": "gather_dot", "route": "cuda", "source": src + "gather_dot.cu",
                     "replaces": "meme_search_engine_tpu/ops/gather.py:89 with the dots at "
                                 "meme_search_engine_tpu/index/vamana.py:237, :609, :828, :905",
-                    "launches": graph["launches"]["gather_dot"], **results["gather_dot"]})
+                    "launches": dk["launches"]["gather_dot"], **results["gather_dot"]})
     kernels.append({"name": "gather_gram", "route": "cuda", "source": src + "gather_gram.cu",
                     "replaces": "meme_search_engine_tpu/ops/gather.py:89 with the Gram at "
                                 "meme_search_engine_tpu/index/vamana.py:377",
-                    "launches": graph["launches"]["gather_gram"], **results["gather_gram"]})
+                    "launches": dk["launches"]["gather_gram"], **results["gather_gram"]})
     print(json.dumps({
         "kernels": kernels,
         "engine": {"batch": B_TIME, "ms": batch_ms, "images_per_s": B_TIME / batch_ms * 1e3,
@@ -2034,8 +2368,8 @@ def main() -> int:
         "codes_equal_to_cpu": code_share, "codes_compared": int(card_codes.size),
         "adc_vs_cpu_max_abs_err": adc_vs_cpu,
     }}), flush=True)
-    print(json.dumps({"graph": graph}), flush=True)
     print(json.dumps({"service": svc}), flush=True)
+    print(json.dumps({"disk": dk}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -2053,4 +2387,6 @@ if __name__ == "__main__":
         sys.exit(proj_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--gather-bench"]:
         sys.exit(gather_bench())
+    if sys.argv[1:2] == ["--disk-n"]:
+        sys.exit(main(disk_n=int(sys.argv[2])))
     sys.exit(main())

@@ -28,9 +28,10 @@ What differs in means, not in result:
   write lands is left open, and node 0 can lose its mark.
 - Scatters that the JAX package pads with an out-of-range row and drops
   (``mode="drop"``) take only the real rows here.
-- ``robust_stitch`` always runs the reference's exact refill loop in
-  Python (the JAX package's ``_force_sequential=True``); the JAX
-  package's native refill is not ported.
+- ``robust_stitch`` always runs the reference's exact refill loop in the
+  shared native library (``native_io.native_stitch_refill``), as the
+  JAX package does by default; it has no Python fallback, and the JAX
+  package's ``_force_sequential=True`` loop is the tests' oracle.
 
 **The gathered dots.** Wherever the JAX package gathers rows to multiply
 them (each greedy-search hop, the merge of a node's existing neighbours,
@@ -54,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops import gather as _gather
+from .native_io import native_stitch_refill
 from ..ops.mips import top_k
 
 __all__ = ["VamanaConfig", "build_graph", "medioid", "random_fill", "robust_stitch", "search"]
@@ -584,7 +586,7 @@ def robust_stitch(
     bp = config.query_breakpoint
     if bp >= n:
         return graph
-    graph = graph.copy()
+    graph = np.array(graph, np.int32)  # a copy, C-contiguous for the native refill
 
     # collect and delete base->query edges
     base_rows = graph[:bp]
@@ -620,23 +622,11 @@ def robust_stitch(
     cand_sorted = np.take_along_axis(qneigh, order, axis=1)  # (P, R) rank-ordered
 
     # refill with base nodes only: re-adding query ids would recreate the
-    # edges just removed
-    max_add = config.max_add_per_stitch_iter
-    for p_idx in range(len(in_ns)):
-        in_n = in_ns[p_idx]
-        added = 0
-        deg = degrees[in_n]
-        existing = set(graph[in_n, :deg].tolist())
-        for cand in cand_sorted[p_idx].tolist():
-            if added >= max_add or deg >= config.r:
-                break
-            if cand < 0 or cand >= bp or cand in existing:
-                continue
-            graph[in_n, deg] = cand
-            existing.add(cand)
-            deg += 1
-            added += 1
-        degrees[in_n] = deg
+    # edges just removed. The loop carries per-in-neighbour state (degree,
+    # membership, budget), so it runs as the reference's exact sequential
+    # loop in the shared native library (native/diskio.cpp stitch_refill,
+    # the JAX package's route too)
+    native_stitch_refill(graph, degrees, in_ns, cand_sorted, bp, config.max_add_per_stitch_iter, config.r)
     return graph
 
 

@@ -66,8 +66,9 @@ class SearchBatcher:
     from the padded result.
 
     Up to ``max_inflight`` batches run concurrently on executor threads
-    (``MSE_SEARCH_INFLIGHT``, default 2). It is clamped to at least 1: at
-    0 the JAX batcher starts no drain task and every query waits forever.
+    (``MSE_SEARCH_INFLIGHT``, default 2; a value that is not an integer
+    means the default). It is clamped to at least 1: at 0 the JAX batcher
+    starts no drain task and every query waits forever.
     """
 
     def __init__(
@@ -79,7 +80,10 @@ class SearchBatcher:
         self._handle = handle
         self._max_batch = max_batch
         if max_inflight is None:
-            max_inflight = int(os.environ.get("MSE_SEARCH_INFLIGHT", "2"))
+            try:
+                max_inflight = int(os.environ.get("MSE_SEARCH_INFLIGHT", "2"))
+            except ValueError:
+                max_inflight = 2
         self._max_inflight = max(1, max_inflight)
         self._pending: List[tuple] = []
         self._runners: List[asyncio.Task] = []

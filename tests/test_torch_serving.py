@@ -209,9 +209,11 @@ def test_port_imports_no_jax_and_no_optional_packages():
     """In a fresh process (tests/conftest.py imports jax here), the port's
     modules and chip_smoke.py pull in neither JAX nor the JAX package, and
     the engine, the inference worker, the tokenizer, the checkpoint
-    reader and the shard build (its file formats included) need none of
-    msgpack, aiohttp, PIL, prometheus_client, tokenizers, safetensors or
-    triton."""
+    reader, the shard build (its file formats included) and the disk
+    deployment's modules (dump, split and pack, the native IO, the disk
+    index and server, ChainQ, the disk tools) need none of msgpack,
+    aiohttp, PIL, prometheus_client, tokenizers, safetensors, triton or
+    zstandard to import; nothing builds the native library on import."""
     code = (
         "import sys\n"
         "import chip_smoke\n"
@@ -226,8 +228,19 @@ def test_port_imports_no_jax_and_no_optional_packages():
         "import meme_search_engine_tpu_torch.ops.gather\n"
         "import meme_search_engine_tpu_torch.ops.mips\n"
         "import meme_search_engine_tpu_torch.pipeline.build_shard\n"
+        "import meme_search_engine_tpu_torch.pipeline.dump\n"
+        "import meme_search_engine_tpu_torch.pipeline.descriptors\n"
+        "import meme_search_engine_tpu_torch.pipeline.processor\n"
+        "import meme_search_engine_tpu_torch.index.native_io\n"
+        "import meme_search_engine_tpu_torch.index.disk_index\n"
+        "import meme_search_engine_tpu_torch.index.chainq\n"
+        "import meme_search_engine_tpu_torch.serving.disk_query_server\n"
+        "import meme_search_engine_tpu_torch.utils.timer\n"
+        "import meme_search_engine_tpu_torch.utils.mallctl\n"
+        "from meme_search_engine_tpu_torch.tools import (scale_bench, synth_disk_index, recall_sweep,\n"
+        "    disk_serve_bench, ann_bench, generate_queries_bin)\n"
         "lazy = [m for m in ('msgpack', 'aiohttp', 'PIL', 'prometheus_client', 'tokenizers',\n"
-        "                    'safetensors', 'triton') if m in sys.modules]\n"
+        "                    'safetensors', 'triton', 'zstandard') if m in sys.modules]\n"
         "assert not lazy, lazy\n"
         "import meme_search_engine_tpu_torch.serving.clip_server as cs\n"
         "cs.make_app\n"

@@ -251,14 +251,15 @@ def test_copied_modules_agree_bit_for_bit():
 
 
 def test_service_modules_import_without_optional_packages():
-    """In a fresh process where aiohttp, msgpack and PIL cannot be
-    imported, every module of the small-scale service imports, plain
-    file names encode, and the batcher answers over a CPU index."""
+    """In a fresh process where aiohttp, msgpack, PIL, zstandard and
+    prometheus_client cannot be imported, every module of the small-scale
+    service and of the disk deployment's serving path imports, plain file
+    names encode, and the batcher answers over a CPU index."""
     code = (
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('aiohttp', 'msgpack', 'PIL'):\n"
+        "        if name.split('.')[0] in ('aiohttp', 'msgpack', 'PIL', 'zstandard', 'prometheus_client'):\n"
         "            raise ImportError(f'blocked: {name}')\n"
         "sys.meta_path.insert(0, Block())\n"
         "import asyncio\n"
@@ -270,13 +271,20 @@ def test_service_modules_import_without_optional_packages():
         "import meme_search_engine_tpu_torch.serving.client\n"
         "import meme_search_engine_tpu_torch.serving.frontend\n"
         "import meme_search_engine_tpu_torch.serving.query_server as qs\n"
+        "import meme_search_engine_tpu_torch.serving.disk_query_server\n"
+        "import meme_search_engine_tpu_torch.index.disk_index\n"
+        "import meme_search_engine_tpu_torch.pipeline.processor\n"
+        "import meme_search_engine_tpu_torch.pipeline.dump\n"
+        "import meme_search_engine_tpu_torch.tools.scale_bench\n"
+        "import meme_search_engine_tpu_torch.tools.generate_queries_bin\n"
         "from meme_search_engine_tpu_torch.ingest.filename import Actual, encode_filename, decode_filename\n"
         "assert decode_filename(encode_filename(Actual('a.png'))) == Actual('a.png')\n"
         "idx = flat.FlatIndex.build(np.eye(4, dtype=np.float16), [Actual(str(i)) for i in range(4)], device='cpu')\n"
         "b = qs.SearchBatcher(flat.IndexHandle(idx), max_inflight=0)\n"
         "s, i, _ = asyncio.run(b.search(np.array([0, 0, 1, 0], np.float32), 1))\n"
         "assert i.tolist() == [2]\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('aiohttp', 'msgpack', 'PIL', 'jax')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('aiohttp', 'msgpack', 'PIL', 'jax', 'zstandard',\n"
+        "                                                    'prometheus_client')\n"
         "       or m == 'meme_search_engine_tpu' or m.startswith('meme_search_engine_tpu.')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
