@@ -14,7 +14,9 @@ o-projection kernels alone (see ``mha_bench``, ``adc_bench`` and
 ``proj_bench``), each for an A/B of two checkouts.
 ``python3 chip_smoke.py --disk-n N`` runs the whole script with the disk
 phase at n = N (``--disk-n 1000000`` is the deployment uncut; it takes
-about 1,100 s).
+about 1,100 s). ``python3 chip_smoke.py --train-scrape`` runs the
+``train``, ``sharded_search`` and ``scrape`` phases alone (see
+``train_scrape``).
 
 Phases, in order; any failure exits non-zero with no result line:
 
@@ -87,6 +89,22 @@ Phases, in order; any failure exits non-zero with no result line:
      first by its stored embedding, with its dims; then the reload, the
      search at B = 1 and 16 beside its byte bound, and a single-text
      query end to end, timed. The fused kernel launches on no main path.
+   - The SigLIP train step (``train``) on a 1 x 1 mesh of
+     ``torch.distributed`` (NCCL, world size 1): at SO400M widths and
+     depth 2 one step on the card against the same step on the CPU (loss
+     2e-2, every gradient's cosine 0.99); at full depth, B = 8, five steps
+     timed and one profiled, the peak memory, no kernel launched (the
+     train route is the plain one); the state saved and restored equal;
+     the trained tree served through the image kernels against the plain
+     route (cos 0.999). Then ``sharded_search``: ``ShardedFlatIndex`` on
+     the same kind of mesh, 1e5 x 1152 fp16 rows, 64 queries at k =
+     1,000, equal to ``FlatIndex.search`` up to near ties (1e-5). Then
+     ``scrape``: the scraper end to end against a local image host and
+     the port's clip server on this engine (256 images, 26 links triage
+     rejects), every accepted link in the dump once with the engine's
+     own embedding of its bytes (cos 0.999), the image kernels launched
+     and the text kernel not; ``dump_tool stats`` on the dump;
+     ``get_embedding`` of one text (27 ``fused_mha`` launches).
    - Quantizers, at the deployment size of docs/scale1m_report.json
      (N = 1e6, d = 1152): the port's ``tools/quantizer_bench`` trains OPQ
      64x256 on a 50k sample with 64 queries, encodes the corpus and
@@ -131,7 +149,8 @@ Phases, in order; any failure exits non-zero with no result line:
      that differs must hold a decision within 1e-5 of its threshold; in
      int8, whose sums are exact integers, everything must be equal.
 5. One JSON line with every kernel's numbers, one with the quantizer
-   path's, one with the service's, one with the disk deployment's, then
+   path's, one with the service's, one with the disk deployment's, one
+   with the ``train``, ``sharded_search`` and ``scrape`` phases', then
    the card's name and power limit, then ``{"ok": true, "device": {...}}`` as
    the last line.
 """
@@ -1240,6 +1259,497 @@ def service(engine, dev, reset_counts, launch_counts, check_counts,
     }
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_flops(cfg, b: int) -> float:
+    """A train step's operations: 3 x the forward's (the backward's two
+    products a forward product), the forward counted from the shapes: the
+    dense layers' 2 x rows x d_in x d_out, attention's Q.K^T and P.V, 2 x
+    B x H x Sq x Sk x dh each, and the loss's B x B logits."""
+    def tower(rows, s, n_seq, d, m, depth):
+        dense = 2 * rows * (4 * d * d + 2 * d * m)
+        attn = 2 * 2 * n_seq * s * s * d
+        return depth * (dense + attn)
+
+    d, m, s = cfg.width, cfg.mlp_dim, cfg.num_patches
+    img = tower(b * s, s, b, d, m, cfg.depth)
+    img += 2 * b * s * (cfg.patch_size ** 2 * 3) * d  # patch embedding
+    img += 2 * b * s * 2 * d * d + 2 * 2 * b * s * d + 2 * b * (2 * d * d + 2 * d * m)  # MAP head
+    ts, td, tm = cfg.text_len, cfg.text_width, cfg.text_mlp_dim
+    txt = tower(b * ts, ts, b, td, tm, cfg.text_depth) + 2 * b * td * cfg.d_emb
+    return 3.0 * (img + txt + 2 * b * b * cfg.d_emb)
+
+
+def train(engine_cfg, dev, launch_counts, reset_counts) -> dict:
+    """The SigLIP train step on a 1 x 1 mesh (NCCL on the card, world size
+    1), then the checkpoint and the trained weights served. Returns the
+    ``train`` JSON object.
+
+    1. SO400M widths at depth 2 for both towers, bf16 params from seed 0
+       on the host, 4 pairs at 384 px: one ``make_train_step`` on the card
+       and the same on the CPU (a gloo mesh over the same group): the loss
+       within 2e-2 relative, each leaf's gradient finite with cosine >=
+       0.99 (the k biases', zero in exact arithmetic, within 1e-3 of the
+       largest gradient instead), and the share of updated entries that
+       differ by more than one bf16 ulp + lr, logged.
+    2. SO400M at full depth, B = 8 pairs, 5 steps: each step's ms (CUDA
+       events), the peak memory, finite losses, params that moved, and no
+       kernel launched (the train route is the plain one).
+    3. The state saved and restored into a fresh one (params and moments
+       equal), then the trained tree served by an ``EmbeddingEngine``
+       through the kernels, against the plain route on 4 images (cos >=
+       0.999).
+    """
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.ops.attention import mha_xla
+    from meme_search_engine_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
+    from meme_search_engine_tpu_torch.parallel.mesh import make_mesh, tree_flat, tree_leaves, tree_map
+    from meme_search_engine_tpu_torch.parallel.train import make_train_state, make_train_step
+    from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
+
+    t_phase = time.perf_counter()
+    lr = 1e-4
+    port = free_port()
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        mesh_cpu = make_mesh(1, 1, device="cpu")
+        out: dict = {"mesh": mesh.shape, "backend": dist.get_backend(), "lr": lr}
+
+        # 1. card against CPU at SO400M widths, depth 2
+        cfg2 = dataclasses.replace(engine_cfg, depth=2, text_depth=2)
+        whole = siglip.init_params(cfg2, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(0)
+        r = cfg2.image_size
+        images = torch.from_numpy(rng.uniform(-1, 1, (4, r, r, 3)).astype(np.float32))
+        tokens = torch.from_numpy(rng.integers(0, cfg2.vocab_size, (4, cfg2.text_len)).astype(np.int32))
+        steps = {}
+        for name, m in (("card", mesh), ("cpu", mesh_cpu)):
+            t0 = time.perf_counter()
+            params, opt, state = make_train_state(0, cfg2, m, lr, params=whole)
+            _, _, loss = make_train_step(cfg2, m, opt)(params, state, images, tokens)
+            grads = {k: v.grad.float().cpu() for k, v in tree_flat(params).items()}
+            after = {k: v.detach().float().cpu() for k, v in tree_flat(params).items()}
+            steps[name] = (float(loss), grads, after)
+            log(f"train: depth-2 step on the {name} in {time.perf_counter() - t0:.1f} s, "
+                f"loss {float(loss):.6f}")
+            del params, opt, state
+        (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = steps["card"], steps["cpu"]
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        scale = max(float(g.abs().max()) for g in g_cpu.values())
+        coss, worst = {}, (None, 2.0)
+        for k, gc in g_cpu.items():
+            gk = g_card[k]
+            if not bool(gk.isfinite().all()):
+                fail(f"train: gradient of {k} on the card is not finite")
+            if k in siglip.ZERO_GRAD_LEAVES:  # zero in exact arithmetic: rounding noise on both
+                if max(float(gk.abs().max()), float(gc.abs().max())) > 1e-3 * scale:
+                    fail(f"train: gradient of {k} should be about zero")
+                continue
+            coss[k] = float((gk * gc).sum() / (gk.norm() * gc.norm()))
+            if coss[k] < worst[1]:
+                worst = (k, coss[k])
+        ulp_share = {}
+        moved_apart = 0
+        total = 0
+        for k, pc in p_cpu.items():
+            ulp = 2.0 ** (torch.floor(torch.log2(pc.abs().clamp_min(1e-30))) - 7)
+            apart = (p_card[k] - pc).abs() > ulp + lr
+            moved_apart += int(apart.sum())
+            total += pc.numel()
+            ulp_share[k] = float(apart.float().mean())
+        share = moved_apart / total
+        log(f"train: card vs CPU at depth 2: loss {l_card:.6f} / {l_cpu:.6f} (rel {loss_rel:.2e}, "
+            f"tol 2e-2); gradient cos min {worst[1]:.6f} ({worst[0]}) over {len(coss)} leaves; "
+            f"updated params apart by more than one bf16 ulp + lr: {share:.2e} of {total}")
+        if not loss_rel <= 2e-2 or not worst[1] >= 0.99:
+            fail(f"train: card and CPU steps disagree: loss rel {loss_rel}, grad cos {worst}")
+        out["check_depth2"] = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel,
+                               "grad_cos_min": worst[1], "grad_cos_min_leaf": worst[0],
+                               "params_apart_share": share, "batch": 4}
+        del steps, g_card, g_cpu, p_card, p_cpu, whole
+
+        # 2. full depth, B = 8, 5 steps
+        cfg = engine_cfg
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        params, opt, state = make_train_state(0, cfg, mesh, lr)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        step = make_train_step(cfg, mesh, opt)
+        b = 8
+        images = torch.from_numpy(rng.uniform(-1, 1, (b, r, r, 3)).astype(np.float32))
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, cfg.text_len)).astype(np.int32))
+        probe = params["img"]["blocks"]["mlp"]["fc1"]["w"][0, :4, :4].detach().clone()
+        reset_counts()
+        step_ms, losses = [], []
+        for _ in range(5):
+            a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            params, state, loss = step(params, state, images, tokens)
+            e.record()
+            torch.cuda.synchronize()
+            step_ms.append(a.elapsed_time(e))
+            losses.append(float(loss))
+        counts = launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+        moved = float((params["img"]["blocks"]["mlp"]["fc1"]["w"][0, :4, :4].detach() - probe).abs().max())
+        profiled = profile_step(lambda: step(params, state, images, tokens))
+        if profiled["device_ms"] is not None:
+            log(f"  the card busy {profiled['device_ms']:.1f} ms a step: "
+                f"{profiled['device_ms'] / min(step_ms[1:]):.1%} of the fastest unprofiled step")
+        flops = train_flops(cfg, b)
+        best = min(step_ms[1:])
+        log(f"train: SO400M full depth ({cfg.depth} + {cfg.text_depth} layers, {n_params / 1e9:.4f}e9 "
+            f"params), B={b}: step ms {[round(t, 2) for t in step_ms]}, losses {losses}; peak "
+            f"{peak:.2f} GiB above the {mem0 / 2**30:.2f} allocated before; {flops / 1e12:.2f} TFLOP "
+            f"a step (3 x forward) -> {flops / best / 1e9:.1f} TFLOP/s at the fastest step after the "
+            f"first; a probe of fc1.w moved by {moved:.3g}; launches {counts}")
+        if not all(np.isfinite(losses)):
+            fail(f"train: a loss is not finite: {losses}")
+        if not moved > 0:
+            fail("train: the params did not change")
+        if any(counts.values()):
+            fail(f"train: a kernel launched in the train step: {counts}")
+        out["full"] = {"depth": cfg.depth, "text_depth": cfg.text_depth, "params": n_params,
+                       "batch": b, "steps": 5, "step_ms": step_ms, "losses": losses,
+                       "peak_gib": peak, "flops_per_step": flops,
+                       "tflops_at_fastest": flops / best / 1e9, "launches": counts,
+                       "profiled_step": profiled}
+
+        # 3. checkpoint round trip, then the trained tree through the kernels
+        work = os.path.join(ROOT, "build")
+        os.makedirs(work, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=work)
+        try:
+            t0 = time.perf_counter()
+            save_train_state(tmp, params, state, step=5)
+            t_save = time.perf_counter() - t0
+            fresh, _, fresh_state = make_train_state(1, cfg, mesh, lr)
+            t0 = time.perf_counter()
+            fresh, fresh_state, got_step = restore_train_state(tmp, fresh, fresh_state)
+            t_restore = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(tmp) for f in fs)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        equal = got_step == 5 and all(
+            torch.equal(x, y) for part in ("params", "mu", "nu", "count")
+            for x, y in zip(tree_leaves(fresh if part == "params" else getattr(fresh_state, part)),
+                            tree_leaves(params if part == "params" else getattr(state, part))))
+        log(f"train: checkpoint {size / 2**30:.2f} GiB saved in {t_save:.1f} s, restored in "
+            f"{t_restore:.1f} s; restored state equal: {equal}")
+        if not equal:
+            fail("train: the restored state differs from the saved one")
+        del fresh, fresh_state, opt, state
+        trained = tree_map(lambda t: t.detach(), params)
+        del params
+        torch.cuda.empty_cache()
+        served = EmbeddingEngine(trained, cfg, max_batch=4, device=dev)
+        imgs = rng.integers(0, 256, (4, r, r, 3), dtype=np.uint8)
+        reset_counts()
+        got = served.embed_image_arrays(imgs)
+        serve_counts = launch_counts()
+        with torch.inference_mode():
+            want = siglip._embed_image(
+                trained, siglip.preprocess_image(torch.from_numpy(imgs).to(dev), cfg), cfg,
+                attention=mha_xla).cpu().numpy()
+        cos = [float(got[i] @ want[i]) for i in range(4)]
+        log(f"train: the trained tree served through the kernels against the plain route: cos "
+            f"{[round(c, 6) for c in cos]}; launches {serve_counts}")
+        expect = {"ln_matmul": cfg.depth + 1, "matmul_residual": cfg.depth,
+                  "ln_mlp_residual": cfg.depth, "fat_vit_mha": cfg.depth}
+        if any(serve_counts[k] != n for k, n in expect.items()) or not min(cos) >= 0.999:
+            fail(f"train: serving the trained tree: cos {cos}, launches {serve_counts}")
+        out["checkpoint"] = {"gib": size / 2**30, "save_s": t_save, "restore_s": t_restore,
+                             "equal": equal}
+        out["served_cos"] = cos
+        del served, trained
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"train: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def _kernel_kind(name: str) -> str:
+    """A device kernel's family by its name: GEMMs (cuBLAS, CUTLASS), the
+    fp32 ones on the CUDA cores apart (``f32f32``, ``sgemm``: the plain
+    attention's fp32 products), softmax, NCCL, and the rest (elementwise
+    passes, reductions, copies)."""
+    n = name.lower()
+    if any(w in n for w in ("gemm", "xmma", "cutlass", "nvjet")):
+        return "gemm fp32 (f32f32, sgemm)" if ("f32f32" in n or "sgemm" in n) else "gemm, other"
+    if "softmax" in n:
+        return "softmax"
+    if "nccl" in n:
+        return "nccl"
+    return "elementwise, reductions, copies"
+
+
+def profile_step(fn) -> dict:
+    """One call of ``fn`` (a train step) under torch.profiler: its wall
+    time, the card's busy time (the sum of its kernels' times), that time
+    by kernel family (``_kernel_kind``) and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # kernels only: a user annotation's range on the card (the optimizer's
+    # step, each all-gather) spans kernels already counted
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    by_name: dict = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    by_kind: dict = {}
+    for name, ms in by_name.items():
+        by_kind[_kernel_kind(name)] = by_kind.get(_kernel_kind(name), 0.0) + ms
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  profiled step: {wall:.1f} ms wall (profiled), {len(on_card)} device ops, the card busy "
+        + (f"{busy:.1f} ms ({busy / wall:.1%}); by kind (ms): "
+           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]))
+           if on_card else "not measured (no device events)"))
+    for k, v in top:
+        log(f"    {v:.2f} ms: {k[:110]}")
+    return {"wall_ms": wall, "device_ops": len(on_card), "device_ms": busy if on_card else None,
+            "device_ms_by_kind": by_kind, "top_device_ms": {k[:110]: v for k, v in top}}
+
+
+def sharded_search(dev, n: int = SERVICE_N, d: int = 1152, nq: int = 64, k: int = 1000) -> dict:
+    """``ShardedFlatIndex`` on a 1 x 1 mesh over n x d fp16 unit rows, 64
+    queries at k = 1,000, against ``FlatIndex.search`` on the card: the ids
+    equal up to near ties (an id may differ only where its exact score is
+    within 1e-5 of the flat index's at that rank). Returns the
+    ``sharded_search`` JSON object."""
+    import torch
+    import torch.distributed as dist
+
+    from meme_search_engine_tpu_torch.index.flat import FlatIndex
+    from meme_search_engine_tpu_torch.ops import mips
+    from meme_search_engine_tpu_torch.parallel.mesh import make_mesh
+    from meme_search_engine_tpu_torch.parallel.sharded import ShardedFlatIndex
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        rng = np.random.default_rng(1)
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        x = x.astype(np.float16)
+        q = rng.standard_normal((nq, d), dtype=np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        index = ShardedFlatIndex(x, mesh)
+        flat = FlatIndex.build(x, list(range(n)), device=dev)
+        index.search(q[:1], k)  # allocator at this size
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, i = index.search(q, k)
+        search_s = time.perf_counter() - t0
+        fs, fi = flat.search(q, k)
+        full = mips.exact_scores(flat.vectors, torch.from_numpy(q).to(dev)).cpu().numpy()
+        gap = float(np.abs(s - fs).max())
+        moved = 0
+        for row in range(nq):
+            diff = np.flatnonzero(i[row] != fi[row])
+            moved += len(diff)
+            if len(diff) and np.abs(full[row, i[row, diff]] - fs[row, diff]).max() > NEAR_TIE_SEARCH:
+                fail(f"sharded search: query {row} differs from FlatIndex beyond near ties")
+        log(f"sharded_search: {n} x {d} fp16 on a {mesh.shape} mesh, {nq} queries at k={k} in "
+            f"{search_s:.4f} s (host clock); largest score gap to FlatIndex {gap:.2e}, {moved} ids "
+            f"moved within near ties")
+        if s.shape != (nq, k) or gap > NEAR_TIE_SEARCH:
+            fail(f"sharded search: shape {s.shape}, score gap {gap}")
+        del index, flat
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"n": n, "d": d, "queries": nq, "k": k, "mesh": mesh.shape, "search_s": search_s,
+            "score_gap": gap, "ids_moved_within_ties": moved,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+SCRAPE_IMAGES, SCRAPE_REJECT = 256, 26
+
+
+def scrape(engine, launch_counts, reset_counts) -> dict:
+    """The scraper end to end, as users run it, with nothing leaving this
+    host: a local aiohttp host serves 256 JPEG and PNG images made from a
+    seed (32 at 500 x 400), a zstd NDJSON submissions dump points at them
+    with 26 links that triage must reject (and an NSFW and a deleted
+    submission, which the reader drops), the port's clip server runs on
+    the engine of phase 4, and ``scraper.scrape`` embeds through its
+    default ``RemoteEmbedder``. The dump read back must hold every
+    accepted URL once and no other, each embedding equal to the engine's
+    own ``embed_image_bytes`` of the same bytes (cos >= 0.999); the image
+    kernels launched and the text kernel did not. Then ``dump_tool
+    stats`` on the dump, and ``get_embedding`` of one text through the
+    same server (the text kernel, 27 launches). Returns the ``scrape``
+    JSON object.
+
+    The reference's triage rewrites ``http://`` to ``https://``; this host
+    speaks plain HTTP, so the dump's links spell the scheme ``HTTP://``,
+    which triage leaves alone and aiohttp reads as http."""
+    import asyncio
+    import base64
+    import contextlib
+    import io
+    import tempfile
+
+    from aiohttp import web
+    from PIL import Image
+
+    from meme_search_engine_tpu_torch.pipeline import dump, scraper
+    from meme_search_engine_tpu_torch.serving import clip_server
+    from meme_search_engine_tpu_torch.serving.client import InProcessEmbedder
+    from meme_search_engine_tpu_torch.tools import dump_tool, get_embedding
+    from meme_search_engine_tpu_torch.utils.fp16 import decode_fp16_buffer
+
+    t_phase = time.perf_counter()
+    cfg = engine.cfg
+    rng = np.random.default_rng(2)
+    blobs = {}
+    for j in range(SCRAPE_IMAGES):
+        h, w = (400, 500) if j % 8 == 0 else (cfg.image_size, cfg.image_size)
+        small = rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8)
+        img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+        buf = io.BytesIO()
+        fmt, mime, ext = ("PNG", "image/png", "png") if j % 2 else ("JPEG", "image/jpeg", "jpg")
+        img.save(buf, format=fmt)
+        blobs[f"{j:04d}.{ext}"] = (buf.getvalue(), mime)
+
+    async def serve_image(request):
+        blob = blobs.get(request.match_info["name"])
+        if blob is None:
+            raise web.HTTPNotFound()
+        return web.Response(body=blob[0], content_type=blob[1])
+
+    async def run(tmp):
+        host = web.Application()
+        host.router.add_get("/img/{name}", serve_image)
+        runners = []
+        for app in (host, clip_server.make_app(engine, {"max_batch_size": engine.max_batch})):
+            runner = web.AppRunner(app)
+            await runner.setup()
+            await web.TCPSite(runner, "127.0.0.1", 0).start()
+            runners.append(runner)
+        try:
+            img_port = runners[0].addresses[0][1]
+            clip_url = f"http://127.0.0.1:{runners[1].addresses[0][1]}"
+            base = f"HTTP://127.0.0.1:{img_port}"
+            rows, accepted = [], set()
+            for j, name in enumerate(sorted(blobs)):
+                url = f"{base}/img/{name}"
+                accepted.add(url)
+                rows.append({"url": url, "title": f"meme {j}", "author": f"user{j % 7}",
+                             "subreddit": "memes", "id": f"s{j}", "created_utc": 1_600_000_000 + j})
+            rejected = [f"{base}/page{j}.html" if j % 2 else f"{base}/nothing-here/{j}"
+                        for j in range(SCRAPE_REJECT)]
+            for j, url in enumerate(rejected):
+                rows.insert(10 * j + 3, {"url": url, "title": "no", "author": "u", "subreddit": "memes",
+                                         "id": f"r{j}", "created_utc": 1_600_000_000 + j})
+            rows.append({"url": f"{base}/img/0000.jpg", "title": "nsfw", "author": "u", "id": "x",
+                         "over_18": True, "created_utc": 1})
+            rows.append({"url": f"{base}/img/0001.png", "title": "gone", "author": "[deleted]",
+                         "id": "y", "created_utc": 1})
+            sub = os.path.join(tmp, "RS_synthetic.zst")
+            with open(sub, "wb") as f:
+                w = dump._StoredFrameWriter(f)
+                w.write("\n".join(json.dumps(r) for r in rows).encode())
+                w.close()
+            out_dir = os.path.join(tmp, "dumps")
+            scfg = scraper.ScraperConfig(input_files=[sub], output_dir=out_dir, clip_server=clip_url,
+                                         max_fetch_concurrency=64)
+            reset_counts()
+            t0 = time.perf_counter()
+            written = await scraper.scrape(scfg)
+            scrape_s = time.perf_counter() - t0
+            scrape_counts = launch_counts()
+            reset_counts()
+            loop = asyncio.get_running_loop()
+            text_out = io.StringIO()
+
+            def text_query():
+                with contextlib.redirect_stdout(text_out):
+                    get_embedding.main(["--server", clip_url, "--text", "a cat reacting to a gpu"])
+
+            await loop.run_in_executor(None, text_query)
+            text_counts = launch_counts()
+            return (written, scrape_s, scrape_counts, text_counts, accepted, set(rejected), out_dir,
+                    text_out.getvalue())
+        finally:
+            for runner in runners:
+                await runner.cleanup()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (written, scrape_s, scrape_counts, text_counts, accepted, rejected, out_dir,
+         text_b64) = asyncio.run(run(tmp))
+        path = os.path.join(out_dir, "000000001.dump.zst")
+        entries = list(dump.read_dump(path))
+        stats_out = io.StringIO()
+        with contextlib.redirect_stdout(stats_out):
+            dump_tool.main(["stats", "--dumps", path])
+        stats = json.loads(stats_out.getvalue().strip().splitlines()[-1])
+    urls = [e.url for e in entries]
+    log(f"scrape: {written} entries written of {len(accepted)} accepted links in {scrape_s:.2f} s "
+        f"({written / scrape_s:.1f} images/s); launches {scrape_counts}; dump_tool stats {stats}")
+    if written != len(accepted) or len(urls) != len(set(urls)) or set(urls) != accepted:
+        fail(f"scrape: {written} written, {len(set(urls))} distinct URLs, "
+             f"{len(set(urls) - accepted)} not accepted, {len(accepted - set(urls))} missing")
+    if set(urls) & rejected:
+        fail("scrape: a rejected link reached the dump")
+    if stats["entries"] != written:
+        fail(f"scrape: dump_tool stats counts {stats['entries']} entries of {written}")
+    depth = cfg.depth
+    nb = scrape_counts["matmul_residual"] // depth
+    if (scrape_counts["fused_mha"] or not nb or scrape_counts["ln_matmul"] != (depth + 1) * nb
+            or scrape_counts["ln_mlp_residual"] != depth * nb or scrape_counts["fat_vit_mha"] != depth * nb):
+        fail(f"scrape: the image kernels' launches {scrape_counts} are not {depth} a layer of "
+             f"{nb} buckets")
+    embedder = InProcessEmbedder(engine)
+    names = {f"/img/{n}": b for n, (b, _) in blobs.items()}
+    order = [names[u[u.index("/img/"):]] for u in urls]
+    direct = asyncio.run(embedder.embed_image_bytes(order))
+    got = np.stack([e.embedding for e in entries])
+    cos = np.sum(got * direct, axis=1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(direct, axis=1))
+    text = decode_fp16_buffer(base64.urlsafe_b64decode(text_b64.strip().splitlines()[-1]))
+    text_cos = float(text @ engine.embed_texts(["a cat reacting to a gpu"])[0] / np.linalg.norm(text))
+    log(f"scrape: dump embeddings against the engine's embed_image_bytes: cos min {cos.min():.6f}; "
+        f"get_embedding's text against embed_texts: cos {text_cos:.6f}, launches {text_counts}")
+    if not cos.min() >= 0.999 or not text_cos >= 0.999:
+        fail(f"scrape: embeddings disagree: images cos min {cos.min()}, text cos {text_cos}")
+    if text_counts["fused_mha"] != cfg.text_depth or any(
+            v for k, v in text_counts.items() if k != "fused_mha"):
+        fail(f"scrape: get_embedding's text launched {text_counts}")
+    return {"images": len(blobs), "rejected_links": len(rejected), "written": written,
+            "scrape_s": scrape_s, "images_per_s": written / scrape_s, "buckets": nb,
+            "launches": scrape_counts, "text_launches": text_counts, "cos_min": float(cos.min()),
+            "text_cos": text_cos, "dump_stats": stats, "phase_s": time.perf_counter() - t_phase}
+
+
 def fat_rows(attention, qkvf, n_heads: int, head_dim: int, s: int) -> dict:
     """The fat attention's two rows over one packed (B, SP, 3*H*C) qkvf:
     name -> (kernel call, plain call, library call, flops, bytes,
@@ -1485,6 +1995,49 @@ def gather_bench() -> int:
     out = gathered_dots(dev, torch.Generator(device=dev).manual_seed(1234))
     print(json.dumps(out), flush=True)
     print(nvidia_smi(), flush=True)
+    return 0
+
+
+def train_scrape() -> int:
+    """``python3 chip_smoke.py --train-scrape``: the ``train``,
+    ``sharded_search`` and ``scrape`` phases alone, on a fresh SO400M engine
+    (seed 0) after the kernels' build; one JSON line, then the card's name
+    and power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    sys.path.insert(0, ROOT)
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.ops import _build, adc, attention, fused, gather
+    from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
+
+    smi = nvidia_smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    cfg = siglip.SO400M_14_384
+    engine = EmbeddingEngine(
+        siglip.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), cfg,
+        max_batch=128, device="cuda")
+    modules = (fused, attention, adc, gather)
+
+    def launch_counts():
+        return {k: v for m in modules for k, v in m.launches.items()}
+
+    def reset_counts():
+        for m in modules:
+            m.reset_launches()
+
+    out = {"train": train(cfg, dev, launch_counts, reset_counts),
+           "sharded_search": sharded_search(dev),
+           "scrape": scrape(engine, launch_counts, reset_counts)}
+    print(json.dumps(out), flush=True)
+    print(smi, flush=True)
     return 0
 
 
@@ -2110,7 +2663,7 @@ def main(disk_n: int = DISK_N) -> int:
 
     # one text layer's parts at B=128 (the engine's layer-0 weights), each
     # timed as the encoder runs it; x stands in for the residual stream
-    blk = siglip._layer(engine.params["txt"]["blocks"], 0)
+    blk = siglip._layers(engine.params["txt"]["blocks"])[0]
     x = rn(B_TIME, TS, cfg.text_width)
     parts = {
         "layer_norm": (2, lambda: siglip._layer_norm(x, blk["ln1"])),
@@ -2173,6 +2726,12 @@ def main(disk_n: int = DISK_N) -> int:
     svc = service(engine, dev, reset_counts, launch_counts, check_counts)
     del worker, batch_out, text_out
     torch.cuda.empty_cache()
+
+    # the train step, the sharded search and the scraper through the clip
+    # server on the same engine
+    train_paths = {"train": train(cfg, dev, launch_counts, reset_counts),
+               "sharded_search": sharded_search(dev),
+               "scrape": scrape(engine, launch_counts, reset_counts)}
 
     # quantizers at the deployment size of docs/scale1m_report.json, through
     # the port's tool as a user runs it; the training and encoding stages
@@ -2370,6 +2929,7 @@ def main(disk_n: int = DISK_N) -> int:
     }}), flush=True)
     print(json.dumps({"service": svc}), flush=True)
     print(json.dumps({"disk": dk}), flush=True)
+    print(json.dumps(train_paths), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -2387,6 +2947,8 @@ if __name__ == "__main__":
         sys.exit(proj_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--gather-bench"]:
         sys.exit(gather_bench())
+    if sys.argv[1:2] == ["--train-scrape"]:
+        sys.exit(train_scrape())
     if sys.argv[1:2] == ["--disk-n"]:
         sys.exit(main(disk_n=int(sys.argv[2])))
     sys.exit(main())

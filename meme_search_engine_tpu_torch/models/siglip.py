@@ -16,6 +16,19 @@ bf16 cast points.
 - ``encode_text`` runs the plain pre-LN encoder (``_encoder``), whose
   self-attention goes through ``ops.attention.mha``: the fused attention
   kernel (``csrc/mha.cu``) on the card, as ``fused_mha_pallas`` on the TPU.
+- ``siglip_loss`` (the sigmoid loss, JAX ``siglip.py:792``) builds a graph
+  that autograd differentiates. No kernel here has a backward, nor has any
+  Pallas kernel of the JAX package, whose train step runs off a TPU. So
+  the loss takes the plain route by argument: the image tower's plain
+  encoder and MAP head, and ``mha_xla`` for every attention. The kernel
+  wrappers raise on an input that requires grad.
+
+``encode_image`` and ``encode_text`` are the inference wrappers (under
+``torch.inference_mode``) around the graph-building ``_embed_image`` and
+``_embed_text``, which the loss and ``parallel/train.py`` call. Those take
+an optional ``par``, the tensor-parallel context of ``parallel/train.py``:
+column-parallel q, k, v and fc1, row-parallel o and fc2, and the global
+batch's embeddings gathered over the data-parallel ranks.
 
 Everything else (resize, patch embedding, dense layers, LayerNorm, MLP,
 probe attention, L2 norm) is plain torch, as it is XLA in the reference.
@@ -37,7 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import fat_vit_mha_packed, fat_width, mha
+from ..ops.attention import fat_vit_mha_packed, fat_width, mha, mha_xla
 from ..ops.fused import ln_matmul, ln_mlp_residual, matmul_residual, pad_hidden
 from .safetensors_io import read_safetensors
 
@@ -53,6 +66,8 @@ __all__ = [
     "preprocess_image",
     "encode_image",
     "encode_text",
+    "siglip_loss",
+    "ZERO_GRAD_LEAVES",
     "load_hf_siglip",
     "param_count",
 ]
@@ -315,49 +330,67 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     return (x.float() @ p["w"].float() + p["b"].float()).to(x.dtype)
 
 
-def _mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
+def _mlp(x: torch.Tensor, p: Params, par=None) -> torch.Tensor:
+    """fc1, tanh-gelu, fc2; with ``par``, fc1 column-parallel and fc2
+    row-parallel over the model group."""
+    if par is not None:
+        x = par.enter(x)
     h = _dense(x, p["fc1"])
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return _dense(h, p["fc2"])
+    return _dense(h, p["fc2"]) if par is None else par.row_dense(h, p["fc2"])
 
 
-def _attn(x: torch.Tensor, p: Params, num_heads: int, kv: torch.Tensor | None = None):
-    """Multi-head attention block; ``kv`` for cross-attention (MAP head)."""
+def _attn(
+    x: torch.Tensor, p: Params, num_heads: int, kv: torch.Tensor | None = None,
+    attention=mha, par=None,
+):
+    """Multi-head attention block; ``kv`` for cross-attention (MAP head).
+    ``attention`` takes (B, S, H, Dh) q, k, v. With ``par`` (self-attention
+    only) the q, k, v weights hold this rank's heads and o its rows."""
     b, s, d = x.shape
+    dh = d // num_heads
+    if par is not None:
+        x = par.enter(x)
     src = x if kv is None else kv
     sk = src.shape[1]
-    dh = d // num_heads
-    q = _dense(x, p["q"]).reshape(b, s, num_heads, dh)
-    k = _dense(src, p["k"]).reshape(b, sk, num_heads, dh)
-    v = _dense(src, p["v"]).reshape(b, sk, num_heads, dh)
-    o = mha(q, k, v).reshape(b, s, d)
-    return _dense(o, p["o"])
+    q = _dense(x, p["q"])
+    h = q.shape[-1] // dh  # the heads this rank holds
+    q = q.reshape(b, s, h, dh)
+    k = _dense(src, p["k"]).reshape(b, sk, h, dh)
+    v = _dense(src, p["v"]).reshape(b, sk, h, dh)
+    o = attention(q, k, v).reshape(b, s, h * dh)
+    return _dense(o, p["o"]) if par is None else par.row_dense(o, p["o"])
 
 
-def _encoder(x: torch.Tensor, blocks: Params, num_heads: int) -> torch.Tensor:
+def _encoder(
+    x: torch.Tensor, blocks: Params, num_heads: int, attention=mha, par=None
+) -> torch.Tensor:
     """Pre-LN transformer encoder over stacked block params; bf16
     residual adds, as the reference's scan step."""
-    for i in range(blocks["ln1"]["g"].shape[0]):
-        blk = _layer(blocks, i)
-        x = x + _attn(_layer_norm(x, blk["ln1"]), blk["attn"], num_heads)
-        x = x + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"])
+    for blk in _layers(blocks):
+        x = x + _attn(_layer_norm(x, blk["ln1"]), blk["attn"], num_heads,
+                      attention=attention, par=par)
+        x = x + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"], par)
     return x
 
 
-def _layer(tree, i: int):
-    """Layer i of a tree of stacked per-layer tensors."""
+def _layers(tree) -> list:
+    """Every layer of a tree of stacked per-layer tensors, unbound at once
+    (autograd stacks the layers' gradients in one operation)."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: _layers(v) for k, v in tree.items()}
+        depth = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(depth)]
+    return list(torch.unbind(tree))
 
 
-def _map_head(x: torch.Tensor, p: Params, num_heads: int) -> torch.Tensor:
+def _map_head(x: torch.Tensor, p: Params, num_heads: int, attention=mha) -> torch.Tensor:
     """MAP (multihead attention pooling) head over every row of x: the
     probe attends through ``_attn``, whose single query takes the plain
     attention route."""
     b, _, d = x.shape
     probe = p["probe"][None].expand(b, 1, d).to(x.dtype)
-    y = _attn(probe, p, num_heads, kv=x)
+    y = _attn(probe, p, num_heads, kv=x, attention=attention)
     y = y + _mlp(_layer_norm(y, p["ln"]), p["mlp"])
     return y[:, 0]
 
@@ -455,6 +488,43 @@ def preprocess_image(images: torch.Tensor, cfg: SigLIPConfig = SO400M_14_384) ->
     return (x / 127.5 - 1.0).to(cfg.param_dtype)
 
 
+def _patches(p: Params, x: torch.Tensor, cfg: SigLIPConfig) -> torch.Tensor:
+    """(B, R, R, 3) model input -> (B, num_patches, width): the patch
+    embedding (a stride == kernel conv is a crop, a blocked reshape and one
+    matmul) plus the position embedding."""
+    b = x.shape[0]
+    n_side = cfg.image_size // cfg.patch_size
+    span = n_side * cfg.patch_size
+    ps = cfg.patch_size
+    x = x[:, :span, :span, :].reshape(b, n_side, ps, n_side, ps, 3)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, n_side * n_side, ps * ps * 3)
+    x = _dense(x, p["patch_embed"])
+    return x + p["pos_emb"][None].to(x.dtype)
+
+
+def _normalized(emb: torch.Tensor, normalize: bool) -> torch.Tensor:
+    emb = emb.float()
+    return emb / torch.linalg.norm(emb, dim=-1, keepdim=True) if normalize else emb
+
+
+def _embed_image(
+    params: Params, x: torch.Tensor, cfg: SigLIPConfig, attention=mha, par=None,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """The image tower's plain route, as a graph: (B, R, R, 3) model input
+    in [-1, 1] -> fp32 (B, d_emb). Reads the source tree (not prepared)."""
+    p = params["img"]
+    if _is_prepared(p):
+        raise ValueError(
+            "the plain image route reads the source tree; these params were prepared "
+            "for the fat-layout path"
+        )
+    x = _patches(p, x.to(cfg.param_dtype), cfg)
+    x = _encoder(x, p["blocks"], cfg.num_heads, attention, par)
+    x = _layer_norm(x, p["ln_final"])
+    return _normalized(_map_head(x, p["map_head"], cfg.num_heads, attention), normalize)
+
+
 @torch.inference_mode()
 def encode_image(
     params: Params,
@@ -470,39 +540,19 @@ def encode_image(
     ``preprocessed``. ``params`` must have been through
     :func:`prepare_params` with the same ``cfg``.
     """
-    p = params["img"]
-    fat = _uses_fat_path(cfg)
-    if fat and not _is_prepared(p):
-        raise ValueError("encode_image needs prepare_params(params, cfg) first")
-    if not fat and _is_prepared(p):
-        raise ValueError(
-            'attn_impl="xla" reads the source tree; these params were prepared '
-            "for the fat-layout path"
-        )
     x = images.to(cfg.param_dtype) if preprocessed else preprocess_image(images, cfg)
-    b = x.shape[0]
-    n_side = cfg.image_size // cfg.patch_size
-    span = n_side * cfg.patch_size
-    ps = cfg.patch_size
-    # stride == kernel conv == crop + blocked reshape + one matmul
-    x = x[:, :span, :span, :].reshape(b, n_side, ps, n_side, ps, 3)
-    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, n_side * n_side, ps * ps * 3)
-    x = _dense(x, p["patch_embed"])
-    x = x + p["pos_emb"][None].to(x.dtype)
+    if not _uses_fat_path(cfg):
+        return _embed_image(params, x, cfg, normalize=normalize)
+    p = params["img"]
+    if not _is_prepared(p):
+        raise ValueError("encode_image needs prepare_params(params, cfg) first")
+    x = _patches(p, x, cfg)
     s = cfg.num_patches
-    if fat:
-        sp = ((s + 15) // 16) * 16  # row padding, as the reference (729 -> 736)
-        x = F.pad(x, (0, 0, 0, sp - s)).contiguous()
-        x = _encoder_fat(x, p["blocks"], cfg.num_heads, n_valid=s)
-        emb = _map_head_fat(x, p["ln_final"], p["map_head"], cfg.num_heads, n_valid=s)
-    else:
-        x = _encoder(x, p["blocks"], cfg.num_heads)
-        x = _layer_norm(x, p["ln_final"])
-        emb = _map_head(x, p["map_head"], cfg.num_heads)
-    emb = emb.float()
-    if normalize:
-        emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
-    return emb
+    sp = ((s + 15) // 16) * 16  # row padding, as the reference (729 -> 736)
+    x = F.pad(x, (0, 0, 0, sp - s)).contiguous()
+    x = _encoder_fat(x, p["blocks"], cfg.num_heads, n_valid=s)
+    emb = _map_head_fat(x, p["ln_final"], p["map_head"], cfg.num_heads, n_valid=s)
+    return _normalized(emb, normalize)
 
 
 def _embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -517,6 +567,23 @@ def _embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return rows.masked_fill(~valid[..., None], float("nan"))
 
 
+def _embed_text(
+    params: Params, tokens: torch.Tensor, cfg: SigLIPConfig, attention=mha, par=None,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """The text tower as a graph: token ids (B, text_len) -> fp32
+    (B, d_emb). big_vision text_transformer semantics, as the reference:
+    token and position embeddings, the pre-LN encoder, final LN,
+    last-token pool (the sticky-EOS tokenisation puts the sentence at
+    position -1), then the output head."""
+    p = params["txt"]
+    x = _embed_tokens(p["token_emb"], tokens)
+    x = x + p["pos_emb"][None].to(x.dtype)
+    x = _encoder(x, p["blocks"], cfg.text_num_heads, attention, par)
+    x = _layer_norm(x, p["ln_final"])
+    return _normalized(_dense(x[:, -1], p["head"]), normalize)
+
+
 @torch.inference_mode()
 def encode_text(
     params: Params,
@@ -526,22 +593,52 @@ def encode_text(
     normalize: bool = True,
 ) -> torch.Tensor:
     """Token ids (B, text_len) -> fp32 embeddings (B, d_emb), L2-normalised
-    by default.
+    by default (:func:`_embed_text`, self-attention through ``mha``). The
+    text tower's leaves are used as they are."""
+    return _embed_text(params, tokens, cfg, normalize=normalize)
 
-    big_vision text_transformer semantics, as the reference: token and
-    position embeddings, the pre-LN encoder, final LN, last-token pool
-    (the sticky-EOS tokenisation puts the sentence at position -1), then
-    the output head. The text tower's leaves are used as they are.
+
+# ---------------------------------------------------------------------------
+# SigLIP sigmoid loss (the train step's; the reference never trains)
+# ---------------------------------------------------------------------------
+
+
+def _loss(params: Params, images, tokens, cfg: SigLIPConfig, attention, par=None):
+    """The sigmoid loss over every image-text pair of the batch; with
+    ``par``, of the global batch, whose embeddings ``par.gather_batch``
+    brings from every data-parallel rank."""
+    zi = _embed_image(params, images, cfg, attention, par)
+    zt = _embed_text(params, tokens, cfg, attention, par)
+    if par is not None:
+        zi, zt = par.gather_batch(zi), par.gather_batch(zt)
+    logits = (zi @ zt.T) * torch.exp(params["t"]) + params["b"]
+    n = logits.shape[0]
+    labels = 2.0 * torch.eye(n, dtype=torch.float32, device=logits.device) - 1.0
+    # -log sigmoid(labels * logits), pairwise sigmoid contrastive loss
+    return F.softplus(-labels * logits).mean()
+
+
+def siglip_loss(
+    params: Params, images: torch.Tensor, tokens: torch.Tensor, cfg: SigLIPConfig
+) -> torch.Tensor:
+    """``mean(softplus(-labels * (zi @ zt.T * exp(t) + b)))``, labels
+    ``2 I - 1``, over the whole batch; a graph for autograd.
+
+    ``images``: float (B, R, R, 3) in [-1, 1] (preprocessed); ``tokens``:
+    (B, text_len) ids; ``params``: the source tree (not prepared). The
+    route is the plain one whatever ``cfg.attn_impl`` says: the image
+    tower's plain encoder and MAP head, and ``mha_xla`` for every
+    attention, as the JAX package's loss runs off a TPU (no kernel has a
+    backward).
     """
-    p = params["txt"]
-    x = _embed_tokens(p["token_emb"], tokens)
-    x = x + p["pos_emb"][None].to(x.dtype)
-    x = _encoder(x, p["blocks"], cfg.text_num_heads)
-    x = _layer_norm(x, p["ln_final"])
-    emb = _dense(x[:, -1], p["head"]).float()
-    if normalize:
-        emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
-    return emb
+    return _loss(params, images, tokens, cfg, attention=mha_xla)
+
+
+# The leaves whose loss gradient is zero in exact arithmetic, by path: the
+# k biases, since a constant added to every key adds one q.b_k to every
+# score of a row, which the softmax ignores. A computed gradient there is
+# rounding noise, so a comparison holds them to an absolute bound.
+ZERO_GRAD_LEAVES = frozenset({"img/blocks/attn/k/b", "txt/blocks/attn/k/b", "img/map_head/k/b"})
 
 
 # ---------------------------------------------------------------------------

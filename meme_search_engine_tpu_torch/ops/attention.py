@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused import _check, _on_cpu
+from .fused import _check, _refuse_grad, _on_cpu
 
 __all__ = [
     "mha",
@@ -165,6 +165,7 @@ def fused_mha(
     """
     if stable not in _STABLE_MODES:
         raise ValueError(f"stable must be one of {tuple(_STABLE_MODES)}, got {stable!r}")
+    _refuse_grad("fused_mha", q, k, v)
     if _on_cpu(q, k, v):
         return fused_mha_plain(q, k, v, stable)
     if q.dim() != 4:
@@ -278,6 +279,7 @@ def fat_vit_mha(
     qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, n_heads: int, head_dim: int
 ) -> torch.Tensor:
     """Fat-layout attention: (B, SP, H*C) q/k/v -> (B, SP, H*head_dim) bf16."""
+    _refuse_grad("fat_vit_mha", qf, kf, vf)
     if _on_cpu(qf, kf, vf):
         return fat_vit_mha_plain(qf, kf, vf, n_heads, head_dim)
     b, sp, hc = qf.shape
@@ -300,6 +302,7 @@ def fat_vit_mha_packed(qkvf: torch.Tensor, n_heads: int, head_dim: int) -> torch
     """:func:`fat_vit_mha` over one packed (B, SP, 3*H*C) [qf | kf | vf]
     array, read in place through strides (no split copies; at the tiny
     fat widths the kernel reads a :func:`fat_pad` copy)."""
+    _refuse_grad("fat_vit_mha_packed", qkvf)
     if _on_cpu(qkvf):
         return fat_vit_mha_packed_plain(qkvf, n_heads, head_dim)
     b, sp, hc3 = qkvf.shape
@@ -376,6 +379,7 @@ def fat_vit_mha_packed_proj(
     tiny widths the kernel reads a :func:`fat_pad` copy of qkvf and, where
     head_dim is not a multiple of 8, of wo's rows (zero rows to DP a head).
     """
+    _refuse_grad("fat_vit_mha_packed_proj", qkvf, wo, bo, res)
     if _on_cpu(qkvf, wo, bo, res):
         return fat_vit_mha_packed_proj_plain(qkvf, wo, bo, res, n_heads, head_dim)
     if qkvf.dim() != 3 or wo.dim() != 2:

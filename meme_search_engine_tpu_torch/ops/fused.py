@@ -108,6 +108,18 @@ def pad_hidden(w1, b1, w2, multiple: int = HIDDEN_TILE):
 # ---------------------------------------------------------------------------
 
 
+def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
+    """Refuse inputs that require grad: no kernel here has a backward (nor
+    has any Pallas kernel of the JAX package), and a launch through ctypes
+    would hand back a tensor cut from the graph. Checked before the device
+    dispatch, so the CPU's plain versions refuse them too."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires grad; differentiate the "
+            "plain route (siglip.siglip_loss, ops.attention.mha_xla) instead"
+        )
+
+
 def _on_cpu(*ts: torch.Tensor) -> bool:
     devs = {t.device.type for t in ts}
     if devs == {"cpu"}:
@@ -191,6 +203,7 @@ def ln_matmul(
     """
     if act not in (None, "gelu"):
         raise ValueError(f"act must be None or 'gelu', got {act!r}")
+    _refuse_grad("ln_matmul", x, gamma, beta, w, bias)
     if _on_cpu(x, gamma, beta, w, bias):
         return ln_matmul_plain(x, gamma, beta, w, bias, act, k_mask)
     b, sp, k, n = _check_gemm(x, w)
@@ -209,6 +222,7 @@ def matmul_residual(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, res: torch.Tensor
 ) -> torch.Tensor:
     """res + x @ w + bias with fp32 accumulation: (B, SP, K) -> (B, SP, N) bf16."""
+    _refuse_grad("matmul_residual", x, w, bias, res)
     if _on_cpu(x, w, bias, res):
         return matmul_residual_plain(x, w, bias, res)
     b, sp, k, n = _check_gemm(x, w)
@@ -240,6 +254,7 @@ def ln_mlp_residual(
     version pays over the reference's on-chip intermediate. The hidden
     width M must be a multiple of 128 (``pad_hidden`` at load time).
     """
+    _refuse_grad("ln_mlp_residual", x, gamma, beta, w1, b1, w2, b2)
     if _on_cpu(x, gamma, beta, w1, b1, w2, b2):
         return ln_mlp_residual_plain(x, gamma, beta, w1, b1, w2, b2)
     if x.dim() != 3 or w1.dim() != 2:

@@ -9,7 +9,11 @@ L2-normalised fp32 numpy. Texts are tokenised on the host first
 (``serving/tokenizer.py``).
 
 The engine runs on ``cuda`` unless the caller asks for ``cpu``; asking for
-CUDA on a host without it raises, it never falls back to the CPU.
+CUDA on a host without it raises, it never falls back to the CPU. With
+``mesh``, a list of devices, it is data-parallel as the JAX engine is
+over a mesh's ``data`` axis: each device holds the weights, and a bucket
+that divides evenly by the device count runs split across them (JAX
+``engine.py:115-121``); one that does not runs on the first.
 """
 
 from __future__ import annotations
@@ -68,6 +72,8 @@ class EmbeddingEngine:
       device: "cuda" (default) or "cpu".
       tokenizer_path: optional HF ``tokenizer.json`` (or its directory);
         without one, the hash tokenizer (``serving/tokenizer.py``).
+      mesh: optional list of devices for data parallelism (replaces
+        ``device``).
     """
 
     def __init__(
@@ -77,16 +83,23 @@ class EmbeddingEngine:
         max_batch: int = 128,
         device: str | torch.device = "cuda",
         tokenizer_path: Optional[str] = None,
+        mesh: Optional[Sequence[str | torch.device]] = None,
     ):
         self.cfg = cfg
         self.max_batch = max_batch
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        self.devices = [resolve_device(d) for d in (mesh if mesh else [device])]
+        self.device = self.devices[0]
+        if any(d.type == "cuda" for d in self.devices):
             # the dense layers' bf16 GEMMs accumulate in fp32, split-K
             # partial sums included, as the reference's do (process-wide)
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-        towers = {k: _to(params[k], self.device) for k in ("img", "txt")}
-        self.params = siglip.prepare_params(towers, cfg)
+        replicas = {}
+        for d in self.devices:
+            if d not in replicas:
+                towers = {k: _to(params[k], d) for k in ("img", "txt")}
+                replicas[d] = siglip.prepare_params(towers, cfg)
+        self._replicas = [replicas[d] for d in self.devices]
+        self.params = self._replicas[0]
         self.tokenizer = load_tokenizer(tokenizer_path, cfg.vocab_size, cfg.text_len)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
@@ -99,13 +112,27 @@ class EmbeddingEngine:
             self.embed_image_arrays(np.zeros((b, r, r, 3), np.uint8))
             self.embed_tokens(np.ones((b, self.cfg.text_len), np.int32))
 
-    def _run_bucketed(self, fn: Callable[[torch.Tensor], torch.Tensor], batch: np.ndarray) -> np.ndarray:
+    def _run(self, fn, replica: int, chunk: np.ndarray) -> torch.Tensor:
+        device = self.devices[replica]
+        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                return fn(self._replicas[replica], x)
+        return fn(self._replicas[replica], x)
+
+    def _run_bucketed(self, fn: Callable[[dict, torch.Tensor], torch.Tensor], batch: np.ndarray) -> np.ndarray:
         n = batch.shape[0]
+        nd = len(self.devices)
         out = np.empty((n, self.cfg.d_emb), dtype=np.float32)
         i = 0
         for b in pow2_buckets(n, self.max_batch):
-            chunk = torch.from_numpy(np.ascontiguousarray(batch[i : i + b]))
-            out[i : i + b] = fn(chunk.to(self.device)).cpu().numpy()
+            if nd > 1 and b % nd == 0:
+                # every device's share first, then the copies back
+                per = b // nd
+                parts = [self._run(fn, r, batch[i + r * per : i + (r + 1) * per]) for r in range(nd)]
+                out[i : i + b] = np.concatenate([p.cpu().numpy() for p in parts])
+            else:
+                out[i : i + b] = self._run(fn, 0, batch[i : i + b]).cpu().numpy()
             i += b
         return out
 
@@ -117,7 +144,7 @@ class EmbeddingEngine:
         """
         pre = images.dtype != np.uint8
         return self._run_bucketed(
-            lambda x: siglip.encode_image(self.params, x, self.cfg, preprocessed=pre), images
+            lambda p, x: siglip.encode_image(p, x, self.cfg, preprocessed=pre), images
         )
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
@@ -127,5 +154,5 @@ class EmbeddingEngine:
     def embed_tokens(self, tokens: np.ndarray) -> np.ndarray:
         """Token ids (N, text_len) -> (N, d_emb) fp32 unit-norm embeddings."""
         return self._run_bucketed(
-            lambda x: siglip.encode_text(self.params, x, self.cfg), tokens.astype(np.int32)
+            lambda p, x: siglip.encode_text(p, x, self.cfg), tokens.astype(np.int32)
         )

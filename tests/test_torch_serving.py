@@ -211,7 +211,9 @@ def test_port_imports_no_jax_and_no_optional_packages():
     the engine, the inference worker, the tokenizer, the checkpoint
     reader, the shard build (its file formats included) and the disk
     deployment's modules (dump, split and pack, the native IO, the disk
-    index and server, ChainQ, the disk tools) need none of msgpack,
+    index and server, ChainQ, the disk tools), the training and parallel
+    layer (the loss, mesh, train step, sharded search, checkpoints, the
+    dry run), the scraper and the small tools need none of msgpack,
     aiohttp, PIL, prometheus_client, tokenizers, safetensors, triton or
     zstandard to import; nothing builds the native library on import."""
     code = (
@@ -239,6 +241,11 @@ def test_port_imports_no_jax_and_no_optional_packages():
         "import meme_search_engine_tpu_torch.utils.mallctl\n"
         "from meme_search_engine_tpu_torch.tools import (scale_bench, synth_disk_index, recall_sweep,\n"
         "    disk_serve_bench, ann_bench, generate_queries_bin)\n"
+        "from meme_search_engine_tpu_torch.parallel import mesh, train, sharded, checkpoint, dryrun\n"
+        "import meme_search_engine_tpu_torch.pipeline.scraper\n"
+        "from meme_search_engine_tpu_torch.tools import (serve_synthetic, vec_dist, content_hash,\n"
+        "    dump_tool, get_embedding, load_embedding, perf_test)\n"
+        "from meme_search_engine_tpu_torch.models.siglip import siglip_loss\n"
         "lazy = [m for m in ('msgpack', 'aiohttp', 'PIL', 'prometheus_client', 'tokenizers',\n"
         "                    'safetensors', 'triton', 'zstandard') if m in sys.modules]\n"
         "assert not lazy, lazy\n"
