@@ -16,7 +16,8 @@ o-projection kernels alone (see ``mha_bench``, ``adc_bench`` and
 phase at n = N (``--disk-n 1000000`` is the deployment uncut; it takes
 about 1,100 s). ``python3 chip_smoke.py --train-scrape`` runs the
 ``train``, ``sharded_search`` and ``scrape`` phases alone (see
-``train_scrape``).
+``train_scrape``), ``python3 chip_smoke.py --quality`` the ``quality``
+phase alone (see ``quality_only``).
 
 Phases, in order; any failure exits non-zero with no result line:
 
@@ -105,6 +106,20 @@ Phases, in order; any failure exits non-zero with no result line:
      own embedding of its bytes (cos 0.999), the image kernels launched
      and the text kernel not; ``dump_tool stats`` on the dump;
      ``get_embedding`` of one text (27 ``fused_mha`` launches).
+   - The quality model, the rater stack and the SAE (``quality``) at the
+     reference's widths (an ensemble of 16 at d = 1152 with 3 channels, an
+     SAE of 262,144 features at top-k 128), inputs from seeds: the rater
+     trained 600 steps on 16,384 rated pairs of 8,192 items (its loss below
+     0.8x the first, validation AUROC >= 0.8, 3 steps card against CPU), the
+     wide export and its safetensors file, 1e6 x 1152 scored (4,096 rows
+     against float64 numpy at 1e-4), ``dump_tool`` through ``pack
+     --score-model`` on 2e4 records in 4 shards (codes equal to the wide
+     model's, the Useful slider raising the answers' codes), active
+     learning, a crawl from a local host embedded by the engine (kernels 1,
+     2, 3 and 7 28, 27, 27, 27 times a bucket, 5 none) with 8 planted
+     duplicates flagged and no others and the queue app over HTTP, then 30
+     SAE steps on the service's 1e5 library (64 rows card against CPU, one
+     step traced by ``utils/profiling.trace``) and feature exemplars.
    - Quantizers, at the deployment size of docs/scale1m_report.json
      (N = 1e6, d = 1152): the port's ``tools/quantizer_bench`` trains OPQ
      64x256 on a 50k sample with 64 queries, encodes the corpus and
@@ -150,7 +165,8 @@ Phases, in order; any failure exits non-zero with no result line:
      int8, whose sums are exact integers, everything must be equal.
 5. One JSON line with every kernel's numbers, one with the quantizer
    path's, one with the service's, one with the disk deployment's, one
-   with the ``train``, ``sharded_search`` and ``scrape`` phases', then
+   with the ``train``, ``sharded_search`` and ``scrape`` phases', one with
+   the ``quality`` phase's, then
    the card's name and power limit, then ``{"ok": true, "device": {...}}`` as
    the last line.
 """
@@ -1502,11 +1518,9 @@ def _kernel_kind(name: str) -> str:
 
 
 def profile_step(fn) -> dict:
-    """One call of ``fn`` (a train step) under torch.profiler: its wall
-    time, the card's busy time (the sum of its kernels' times), that time
-    by kernel family (``_kernel_kind``) and the top kernels."""
+    """One call of ``fn`` (a train step) under torch.profiler, summed up
+    by ``device_summary``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1515,6 +1529,15 @@ def profile_step(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    return device_summary(prof, wall)
+
+
+def device_summary(prof, wall: float, what: str = "profiled step") -> dict:
+    """A finished torch.profiler run of ``wall`` ms: the card's busy time
+    (the sum of its kernels' times), that time by kernel family
+    (``_kernel_kind``) and the top kernels."""
+    from torch.autograd import DeviceType
+
     # kernels only: a user annotation's range on the card (the optimizer's
     # step, each all-gather) spans kernels already counted
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -1527,7 +1550,7 @@ def profile_step(fn) -> dict:
         by_kind[_kernel_kind(name)] = by_kind.get(_kernel_kind(name), 0.0) + ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"  profiled step: {wall:.1f} ms wall (profiled), {len(on_card)} device ops, the card busy "
+    log(f"  {what}: {wall:.1f} ms wall (profiled), {len(on_card)} device ops, the card busy "
         + (f"{busy:.1f} ms ({busy / wall:.1%}); by kind (ms): "
            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]))
            if on_card else "not measured (no device events)"))
@@ -1748,6 +1771,703 @@ def scrape(engine, launch_counts, reset_counts) -> dict:
             "scrape_s": scrape_s, "images_per_s": written / scrape_s, "buckets": nb,
             "launches": scrape_counts, "text_launches": text_counts, "cos_min": float(cos.min()),
             "text_cos": text_cos, "dump_stats": stats, "phase_s": time.perf_counter() - t_phase}
+
+
+# the quality phase at the reference's widths: the ensemble of 16 at d = 1152
+# with 3 channels and one hidden layer (meme-rater/model.py), the SAE of
+# 262,144 features at top-k 128 (sae/model.py); every input from a seed
+QUALITY = {
+    "d": 1152, "ensemble": 16, "channels": 3,
+    "items": 8192, "ratings": 16384, "steps": 600, "batch": 128, "lr": 3e-4, "dropout": 0.1,
+    "corpus": 1_000_000, "pack_n": 20_000, "pack_shards": 4, "al_pairs": 256,
+    "crawl": 64, "copies": 8, "library": SERVICE_N,
+    "sae_hidden": 262144, "sae_k": 128, "sae_steps": 30, "sae_batch": 1024, "sae_lr": 1e-4,
+}
+AXES = ("useful", "meme", "aesthetic")
+# the disk server's scale for a slider at +1 (serving/disk_query_server.py)
+SLIDER_SCALE = 1.0 / 512
+
+
+def _unit_rows(rng, n: int, d: int) -> np.ndarray:
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _rate(z: np.ndarray) -> np.ndarray:
+    """A hidden scorer's standardised margin -> the rater's five strings."""
+    return np.select([z > 0.5, z > 0.1, z > -0.1, z > -0.5], ["1+", "1", "eq", "2"], "2+")
+
+
+def _step_events(owner, name):
+    """Wrap ``owner.name`` (a training step's forward) to record a CUDA
+    event at each call made with grad enabled; returns the event list and
+    a function that puts ``owner.name`` back."""
+    import torch
+
+    fn = getattr(owner, name)
+    events = []
+
+    def wrapper(*a, **k):
+        if torch.is_grad_enabled():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        return fn(*a, **k)
+
+    setattr(owner, name, wrapper)
+    return events, lambda: setattr(owner, name, fn)
+
+
+def _step_ms(events) -> float:
+    """Median ms from one step's forward to the next, after the first."""
+    import torch
+
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]))
+
+
+def _test_card(rng, j: int, r: int) -> np.ndarray:
+    """A uint8 r x r test card of family j % 4 with colours and periods
+    from ``rng``: stripes at an angle, a checkerboard, rings, a two-colour
+    gradient. The random-weight engine maps noise images close together,
+    some distinct pairs above the duplicate threshold; these cards land
+    further apart."""
+    y, x = np.mgrid[0:r, 0:r]
+    c0 = rng.integers(0, 256, 3)
+    c1 = (c0 + 128 + rng.integers(-48, 49, 3)) % 256  # far from c0 in every channel
+    kind = j % 4
+    if kind == 3:
+        angle = rng.uniform(0, 2 * np.pi)
+        t = (x * np.cos(angle) + y * np.sin(angle)) / (r * 1.42) + 0.5
+        return (c0 * (1 - t[..., None]) + c1 * t[..., None]).clip(0, 255).astype(np.uint8)
+    if kind == 0:
+        angle = rng.uniform(0, np.pi)
+        m = ((x * np.cos(angle) + y * np.sin(angle)) // rng.integers(3, 48)) % 2 == 0
+    elif kind == 1:
+        f = rng.integers(4, 96)
+        m = ((x // f) + (y // f)) % 2 == 0
+    else:
+        cx, cy = rng.integers(0, r, 2)
+        m = (np.hypot(x - cx, y - cy) // rng.integers(4, 64)) % 2 == 0
+    return np.where(m[..., None], c0, c1).astype(np.uint8)
+
+
+def quality(engine, dev, launch_counts, reset_counts, check_counts, q: dict = QUALITY) -> dict:
+    """The quality model, the rater stack and the SAE on the card at the
+    reference's widths (``QUALITY``), through the port's entry points:
+
+    1. ``rater.train`` on a ``RatingsDB`` of unit items rated by a hidden
+       linear scorer over three axes (the loss falls below 0.8x its first,
+       pairwise AUROC >= 0.8 on the ``is_validation`` split; 3 steps at
+       dropout 0 card against CPU: loss 1e-4 relative, params 1e-3);
+    2. ``export_wide`` (its own 1e-4 check) and the safetensors round trip;
+    3. ``score_batch`` over a 1e6 x d corpus (4,096 rows against a float64
+       numpy ensemble mean at 1e-4), one chunk profiled;
+    4. ``dump_tool`` sample, kmeans, shard, build-shards and ``pack
+       --score-model`` (the descriptor codes equal ``bucketize_scores`` of
+       the wide model's scores), then ``DiskIndex`` queries with the Useful
+       slider at 0 and +1 (the answers' mean Useful code rises);
+    5. active learning: variances, 256 pairs through the DB's queue,
+       gradient norms (16 against the CPU at 1e-4 relative), the top
+       decile's pairs;
+    6. the meme pipeline: a crawl from a local aiohttp host, the images
+       embedded by ``engine`` (the image kernels' launches checked), the
+       median scores, the duplicates planted in the small-scale library
+       flagged and no others, the queue app over HTTP;
+    7. ``train_sae`` on the library, ``sae_forward`` card against CPU,
+       one step under ``profiling.trace``, feature exemplars.
+
+    Every failed check calls ``fail``. Returns the ``quality`` JSON
+    object."""
+    import tempfile
+
+    import torch
+
+    from meme_search_engine_tpu_torch.models import score_model as sm
+
+    t_phase = time.perf_counter()
+    d, n_e, ch = q["d"], q["ensemble"], q["channels"]
+    cfg = sm.ScoreModelConfig(d_emb=d, n_hidden=1, n_ensemble=n_e, output_channels=ch, dropout=q["dropout"])
+    out = {"config": dict(q)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model, items, names, db, hidden_w = _quality_train(cfg, dev, q, tmp, out)
+        out["train_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wide, model_path = _quality_export(model, cfg, tmp, out)
+        _quality_score(model, wide, dev, q, tmp, out)
+        out["score_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _quality_pack(wide, model_path, dev, q, tmp, out)
+        out["pack_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _quality_active(model, items, names, db, hidden_w, dev, q, out)
+        out["active_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        library = _quality_pipeline(engine, model, dev, q, tmp, out, launch_counts, reset_counts,
+                                    check_counts)
+        out["pipeline_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _quality_sae(library, dev, q, tmp, out)
+        out["sae_phase_s"] = time.perf_counter() - t0
+        db.conn.close()
+    del model, wide
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"quality: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def _quality_train(cfg, dev, q, tmp, out):
+    """Step 1: ratings, training, AUROC, the card against the CPU."""
+    import torch
+
+    from meme_search_engine_tpu_torch.models import score_model as sm
+    from meme_search_engine_tpu_torch.rater import evaluate
+    from meme_search_engine_tpu_torch.rater import train as rtrain
+    from meme_search_engine_tpu_torch.rater.data import RatingsDB, is_validation
+    from meme_search_engine_tpu_torch.utils.fp16 import encode_fp16_buffer
+
+    rng = np.random.default_rng(11)
+    n, d = q["items"], q["d"]
+    items = _unit_rows(rng, n, d)
+    names = [f"meme{i:05d}.png" for i in range(n)]
+    hidden_w = rng.standard_normal((d, 3)).astype(np.float32)
+    truth = items @ hidden_w
+    idx = rng.integers(0, n, (2 * q["ratings"], 2))
+    idx = idx[idx[:, 0] != idx[:, 1]][: q["ratings"]]
+    z = (truth[idx[:, 0]] - truth[idx[:, 1]]) / (truth.std(0) * np.sqrt(2))
+    ratings = _rate(z)
+    db = RatingsDB(os.path.join(tmp, "ratings.db"))
+    # in bulk, as add_file and add_rating write them (each commits a row)
+    db.conn.executemany("INSERT OR REPLACE INTO files VALUES (?, ?)",
+                        [(nm, encode_fp16_buffer(v)) for nm, v in zip(names, items)])
+    db.conn.executemany("INSERT INTO ratings VALUES (?, ?, ?, ?)",
+                        [(names[a], names[b], ratings[k, c], AXES[c])
+                         for k, (a, b) in enumerate(idx) for c in range(3)])
+    db.conn.commit()
+    (tr_p, tr_t), (va_p, va_t) = db.train_val_split()
+    _, all_t, pair_names = db.pairs()
+    log(f"quality: {n} items x {d}, {len(idx)} rated pairs on {len(AXES)} axes "
+        f"({len(tr_p)} train, {len(va_p)} validation after merging repeats)")
+
+    log_path = os.path.join(tmp, "train.jsonl")
+    settings = rtrain.TrainSettings(lr=q["lr"], batch_size=q["batch"], steps=q["steps"],
+                                    dropout=q["dropout"], seed=0, log_path=log_path)
+    events, restore = _step_events(rtrain, "bradley_terry_prob")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        model, hist = rtrain.train(tr_p, tr_t, cfg, settings, val=(va_p, va_t), device=dev)
+    finally:
+        restore()
+    train_s = time.perf_counter() - t0
+    step_ms = _step_ms(events)
+    curves = evaluate.loss_curves(log_path)
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    # the Useful channel of the mean score against the human choice on the
+    # validation pairs that are not rated equal
+    scores = sm.ensemble_forward(model, items).mean(0)[:, 0].detach().cpu().numpy()
+    row = {nm: i for i, nm in enumerate(names)}
+    val = [(row[a], row[b], t[0]) for (a, b), t in zip(pair_names, all_t)
+           if (is_validation(a) or is_validation(b)) and t[0] != 0.5]
+    auroc = evaluate.pairwise_auroc(scores, [(a, b) for a, b, _ in val], [t > 0.5 for _, _, t in val])
+    log(f"quality: rater.train {q['steps']} steps at B={q['batch']} in {train_s:.2f} s, {step_ms:.3f} ms a "
+        f"step (CUDA events, median after the first); loss {first:.4f} -> {last:.4f} "
+        f"({last / first:.3f}x), val_loss {curves['val_loss'][0]:.4f} -> {curves['val_loss'][-1]:.4f}; "
+        f"pairwise AUROC on {len(val)} validation pairs {auroc:.4f}")
+    if len(curves["loss"]) != q["steps"] or len(curves["val_loss"]) != -(-q["steps"] // rtrain.CHECKPOINT_EVERY):
+        fail(f"quality: the JSONL log holds {len(curves['loss'])} losses and {len(curves['val_loss'])} val_losses")
+    if not last < 0.8 * first:
+        fail(f"quality: the rater's loss went from {first} to {last}, not below 0.8x")
+    if not auroc >= 0.8:
+        fail(f"quality: pairwise AUROC {auroc} < 0.8")
+
+    # 3 steps at dropout 0 from one start, on the card and on the CPU
+    start = sm.init_ensemble(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    three = rtrain.TrainSettings(lr=q["lr"], batch_size=q["batch"], steps=3, dropout=0.0, seed=0)
+    card_m, card_h = rtrain.train(tr_p, tr_t, cfg, three, device=dev, params=start)
+    cpu_m, cpu_h = rtrain.train(tr_p, tr_t, cfg, three, device="cpu", params=sm.on_device(start, "cpu"))
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(card_h, cpu_h))
+    param_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(card_m.parameters(), cpu_m.parameters()))
+    log(f"quality: 3 steps card against CPU: loss {loss_rel:.2e} relative (tol 1e-4), params "
+        f"{param_err:.2e} (tol 1e-3)")
+    if not (loss_rel <= 1e-4 and param_err <= 1e-3):
+        fail(f"quality: the rater's card and CPU steps disagree: loss {loss_rel}, params {param_err}")
+    out["rater"] = {"pairs_train": len(tr_p), "pairs_val": len(va_p), "train_s": train_s,
+                    "step_ms": step_ms, "loss_first": first, "loss_last": last,
+                    "val_loss": [curves["val_loss"][0], curves["val_loss"][-1]], "auroc": auroc,
+                    "auroc_pairs": len(val), "card_cpu_loss_rel": loss_rel, "card_cpu_param_err": param_err}
+    return model, items, names, db, hidden_w
+
+
+def _quality_export(model, cfg, tmp, out):
+    """Step 2: the wide export and its safetensors file."""
+    from meme_search_engine_tpu_torch.models import score_model as sm
+
+    t0 = time.perf_counter()
+    try:
+        wide = sm.export_wide(model, cfg)
+    except AssertionError as e:
+        fail(f"quality: {e}")
+    path = os.path.join(tmp, "model.safetensors")
+    wide.save_safetensors(path)
+    back = sm.WideScoreModel.load_safetensors(path)
+    same = all(np.array_equal(getattr(back, k), getattr(wide, k)) for k in ("up_proj", "bias", "down_proj"))
+    log(f"quality: export_wide up_proj {wide.up_proj.shape}, down_proj {wide.down_proj.shape}, scale "
+        f"{wide.scale:.6f}; {os.path.getsize(path) / 2**20:.1f} MiB of safetensors read back "
+        f"{'equal' if same else 'DIFFERENT'} ({time.perf_counter() - t0:.2f} s)")
+    if not same:
+        fail("quality: the wide model's safetensors file did not read back equal")
+    out["export"] = {"up_proj": list(wide.up_proj.shape), "down_proj": list(wide.down_proj.shape),
+                     "file_mib": os.path.getsize(path) / 2**20, "s": time.perf_counter() - t0}
+    return wide, path
+
+
+def _quality_score(model, wide, dev, q, tmp, out):
+    """Step 3: the corpus scored in chunks; 4,096 rows in float64 numpy."""
+    import torch
+
+    from meme_search_engine_tpu_torch.models.score_model import SCORE_CHUNK
+    from meme_search_engine_tpu_torch.utils import profiling
+
+    n, d, e = q["corpus"], q["d"], q["ensemble"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    x /= x.norm(dim=1, keepdim=True)
+    wide.score_batch(x[:1024], device=dev)  # cuBLAS and the allocator at these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    scores = wide.score_batch(x, device=dev)
+    score_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    flops = 2.0 * n * d * e * d + 2.0 * n * e * d * q["channels"]
+    rows = np.linspace(0, n - 1, 4096).astype(np.int64)
+    xs = x[torch.from_numpy(rows).to(dev)].cpu().double().numpy()
+    ref = np.zeros((len(rows), q["channels"]))
+    hw, hb = model.hidden[0].w.detach().cpu().double().numpy(), model.hidden[0].b.detach().cpu().double().numpy()
+    ow = model.output.w.detach().cpu().double().numpy()
+    for m in range(e):
+        h = xs @ hw[m] + hb[m]
+        ref += (h / (1 + np.exp(-h))) @ ow[m]
+    err = float(np.abs(scores[rows] - ref / e).max())
+    torch.cuda.synchronize()
+    wall = time.perf_counter()
+    with profiling.trace(os.path.join(tmp, "trace_score")) as prof:
+        wide.score_batch(x[:SCORE_CHUNK], device=dev)
+    prof_wall = (time.perf_counter() - wall) * 1e3
+    log(f"quality: score_batch {n} x {d} in {score_s:.3f} s: {n / score_s:,.0f} rows/s, "
+        f"{flops / score_s / 1e12:.1f} TFLOP/s ({flops / 1e12:.2f} TFLOP, fp32), peak {peak:.2f} GiB above "
+        f"the corpus; 4,096 rows against a float64 ensemble mean: max abs err {err:.2e} (tol 1e-4)")
+    summary = device_summary(prof, prof_wall, f"score_batch of {SCORE_CHUNK} rows")
+    if scores.shape != (n, q["channels"]) or not np.isfinite(scores).all() or not err <= 1e-4:
+        fail(f"quality: corpus scores {scores.shape}, finite {np.isfinite(scores).all()}, err {err}")
+    out["score"] = {"rows": n, "s": score_s, "rows_per_s": n / score_s, "tflop": flops / 1e12,
+                    "tflops": flops / score_s / 1e12, "peak_gib": peak, "max_abs_err": err,
+                    "chunk": SCORE_CHUNK, "profile": summary}
+    del x
+
+
+def _quality_pack(wide, model_path, dev, q, tmp, out):
+    """Step 4: the dump_tool chain with ``pack --score-model``, then the
+    sliders of the packed index."""
+    import contextlib
+    import glob
+    import io
+    import json as json_
+
+    from meme_search_engine_tpu_torch.index.disk_index import DiskIndex
+    from meme_search_engine_tpu_torch.index.opq import train_opq
+    from meme_search_engine_tpu_torch.pipeline.descriptors import bucketize_scores, compute_cdfs
+    from meme_search_engine_tpu_torch.pipeline.dump import DumpWriter, OriginalImageMetadata, ProcessedEntry
+    from meme_search_engine_tpu_torch.pipeline.formats import IndexHeader, read_shard_input
+    from meme_search_engine_tpu_torch.tools import dump_tool
+
+    n, d = q["pack_n"], q["d"]
+    rng = np.random.default_rng(4)
+    base = os.path.join(tmp, "pack")
+    os.makedirs(base)
+    dump = os.path.join(base, "000000001.dump.zst")
+    emb = _unit_rows(rng, n, d)
+    stages = {}
+    t0 = time.perf_counter()
+    with DumpWriter(dump) as w:
+        for i in range(n):
+            w.write(ProcessedEntry(url=f"https://example.com/{i}.png", id=f"p{i}", title="t",
+                                   subreddit="memes", author="a", timestamp=1_600_000_000 + 37 * i,
+                                   embedding=emb[i],
+                                   metadata=OriginalImageMetadata("image/png", 1, (384, 384), f"f{i}")))
+    stages["dump"] = time.perf_counter() - t0
+    shards, index_dir = os.path.join(base, "shards"), os.path.join(base, "index")
+    dims = ["--d-emb", str(d)]
+    argvs = {
+        "sample": ["sample", "--dumps", dump, "--fraction", "0.25", "--output", os.path.join(base, "s.bin")],
+        "kmeans": ["kmeans", "--sample", os.path.join(base, "s.bin"), *dims, "--clusters",
+                   str(q["pack_shards"]), "--output", os.path.join(base, "c.bin"), "--device", str(dev)],
+        "shard": ["shard", "--dumps", dump, "--centroids", os.path.join(base, "c.bin"), *dims, "--out-dir", shards],
+        "build-shards": ["build-shards", "--shard-dir", shards, *dims, "--device", str(dev)],
+    }
+    said = io.StringIO()
+    for name, argv in argvs.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            dump_tool.main(argv)
+        stages[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sample = np.fromfile(os.path.join(base, "s.bin"), np.float16).reshape(-1, d).astype(np.float32)
+    pq = train_opq(sample, sample[:1024], n_chunks=64, n_centroids=256, outer_iters=1, adam_iters=20,
+                   device=dev)
+    opq_path = os.path.join(base, "opq.msgpack")
+    with open(opq_path, "wb") as f:
+        f.write(pq.to_msgpack())
+    stages["opq"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        dump_tool.main(["pack", "--shard-dir", shards, "--out-dir", index_dir, "--opq", opq_path,
+                        "--score-model", model_path, "--device", str(dev)])
+    stages["pack"] = time.perf_counter() - t0
+    lines = said.getvalue().strip().splitlines()
+    log(f"quality: dump_tool chain on {n} records x {d} in {q['pack_shards']} shards; stages (s) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; {lines[-1]}")
+
+    # the codes against the wide model's own scores of the packed rows
+    with open(os.path.join(shards, "manifest.json")) as f:
+        manifest = json_.load(f)
+    vectors = np.zeros((len(manifest), d), np.float32)
+    for path in glob.glob(os.path.join(shards, "shard_*.msgpack")):
+        for rid, vec in read_shard_input(path)[1]:
+            vectors[rid] = vec
+    scores = wide.score_batch(vectors, device=dev)
+    stamps = [m["timestamp"] for m in manifest]
+    cdfs = compute_cdfs(scores, stamps)
+    want = bucketize_scores(scores, stamps, cdfs)
+    got = np.fromfile(os.path.join(index_dir, "index.descriptor-codes.bin"), np.uint8)
+    header = IndexHeader.load(os.path.join(index_dir, "index.msgpack"))
+    same_cdfs = len(header.descriptor_cdfs) == len(cdfs) and all(
+        np.array_equal(np.asarray(a, np.float32), b) for a, b in zip(header.descriptor_cdfs, cdfs))
+    if len(manifest) != n or got.shape != want.reshape(-1).shape or not np.array_equal(got, want.reshape(-1)) \
+            or not same_cdfs:
+        fail(f"quality: the packed descriptor codes ({got.shape}) or CDFs ({same_cdfs}) are not those of "
+             f"the wide model's scores of the {len(manifest)} records")
+
+    # the Useful slider through the disk index: at +1 the answers' codes rise
+    index = DiskIndex(index_dir)
+    queries = _unit_rows(rng, 16, d)
+    up = np.zeros(index.n_descriptors, np.float32)
+    up[0] = SLIDER_SCALE
+    mean_code = []
+    t0 = time.perf_counter()
+    for scales in (None, up):
+        codes = [index.descriptors[r.id, 0] for qv in queries
+                 for r in index.search(qv, 20, beamwidth=4, search_list=500, descriptor_scales=scales)[0]]
+        mean_code.append(float(np.mean(codes)))
+    log(f"quality: 16 queries x 20 answers, mean Useful code {mean_code[0]:.2f} with the slider at 0, "
+        f"{mean_code[1]:.2f} at +1 ({time.perf_counter() - t0:.2f} s)")
+    if not mean_code[1] > mean_code[0]:
+        fail(f"quality: the Useful slider at +1 did not raise the answers' codes: {mean_code}")
+    out["pack"] = {"records": n, "shards": q["pack_shards"], "stages_s": stages,
+                   "mean_useful_code": mean_code}
+
+
+def _quality_active(model, items, names, db, hidden_w, dev, q, out):
+    """Step 5: active learning at full width."""
+    from meme_search_engine_tpu_torch.rater import active_learning as al
+    from meme_search_engine_tpu_torch.rater.data import RATING_PROBS
+
+    t0 = time.perf_counter()
+    var = al.ensemble_variance(model, items, device=dev)
+    pairs = al.select_pairs_by_variance(model, items, q["al_pairs"], seed=0, device=dev)
+    named = [(names[a], names[b]) for a, b in pairs]
+    db.push_queue(named)
+    back = [db.pop_queue() for _ in named]
+    if var.shape != (len(items),) or not (var >= 0).all() or len(pairs) != q["al_pairs"] \
+            or back != named or db.pop_queue() is not None:
+        fail(f"quality: variances {var.shape}, {len(pairs)} pairs, the queue read back "
+             f"{'equal' if back == named else 'different'}")
+    ab = np.asarray(pairs)
+    truth = items @ hidden_w
+    z = (truth[ab[:, 0]] - truth[ab[:, 1]]) / (truth.std(0) * np.sqrt(2))
+    targets = np.vectorize(RATING_PROBS.get)(_rate(z)).astype(np.float32)
+    t1 = time.perf_counter()
+    norms = al.gradient_norms(model, items[ab], targets, device=dev)
+    grad_s = time.perf_counter() - t1
+    cpu = al.gradient_norms(model, items[ab[:16]], targets[:16], device="cpu")
+    rel = float(np.abs(norms[:16] - cpu).max() / np.abs(cpu).min())
+    top = al.select_top_percentile_pairs(var, 64, percentile=90)
+    cut = np.percentile(var, 90)
+    log(f"quality: active learning over {len(items)} items: {len(pairs)} pairs queued and read back; "
+        f"gradient norms of {len(norms)} pairs in {grad_s:.2f} s (16 against the CPU: {rel:.2e} "
+        f"relative, tol 1e-4); {len(top)} top-decile pairs ({time.perf_counter() - t0:.2f} s)")
+    if norms.shape != (len(pairs),) or not (norms > 0).all() or not rel <= 1e-4:
+        fail(f"quality: gradient norms {norms.shape}, card against CPU {rel}")
+    if len(top) != 64 or any(a == b or var[a] < cut or var[b] < cut for a, b in top):
+        fail("quality: select_top_percentile_pairs gave pairs outside the top decile")
+    out["active"] = {"pairs": len(pairs), "grad_norms_s": grad_s, "grad_card_cpu_rel": rel,
+                     "s": time.perf_counter() - t0}
+
+
+def _quality_pipeline(engine, model, dev, q, tmp, out, launch_counts, reset_counts, check_counts):
+    """Step 6: crawl, embed, score, dedup, queue, all against one local
+    aiohttp host. Returns the library (fp16 rows) for step 7."""
+    import asyncio
+    import io
+    import urllib.request
+
+    import torch
+    from aiohttp import ClientSession, web
+    from PIL import Image
+
+    from meme_search_engine_tpu_torch.models import score_model as sm
+    from meme_search_engine_tpu_torch.rater import crawler
+    from meme_search_engine_tpu_torch.rater import meme_pipeline as mp
+    from meme_search_engine_tpu_torch.serving.client import InProcessEmbedder
+    from meme_search_engine_tpu_torch.serving.engine import pow2_buckets
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(6)
+    blobs = []
+    for j in range(q["crawl"]):
+        buf = io.BytesIO()
+        Image.fromarray(_test_card(rng, j, cfg.image_size)).save(buf, format="PNG")
+        blobs.append(buf.getvalue())
+    copies = np.sort(rng.choice(q["crawl"], q["copies"], replace=False))
+    # the small-scale service's library: unit fp16 rows from a seed, with the
+    # engine's own embeddings of the copied images planted in it
+    library = _unit_rows(np.random.default_rng(5), q["library"], q["d"]).astype(np.float16)
+    slots = np.sort(rng.choice(q["library"], q["copies"], replace=False))
+    embedder = InProcessEmbedder(engine)
+    # every download goes to the local host, whatever proxy the environment names
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    urllib.request.install_opener(opener)
+    posts = [{"id": f"p{j}", "title": f"meme {j}"} for j in range(q["crawl"])]
+    page = 24
+    queue_path, memes = os.path.join(tmp, "queue.json"), os.path.join(tmp, "memes")
+    os.makedirs(memes)
+
+    async def listing(request):
+        after = request.query.get("after")
+        start = int(after[3:]) if after else 0
+        nxt = f"t3_{start + page}" if start + page < len(posts) else None
+        return web.json_response({"data": {"children": [{"data": p} for p in posts[start:start + page]],
+                                           "after": nxt}}, headers={"x-ratelimit-remaining": "50"})
+
+    async def image(request):
+        return web.Response(body=blobs[int(request.match_info["j"])], content_type="image/png")
+
+    def scored(embs, base):
+        """Score, dedup, filter and enqueue (blocking, on the card)."""
+        urls = [f"{base}/img/{j}.png" for j in range(len(embs))]
+        scores = mp.score_candidates(embs, model, 0, device=dev)
+        with torch.no_grad():
+            members = sm.ensemble_forward(model, embs)[:, :, 0].cpu().numpy()
+        if not np.array_equal(scores, np.median(members, axis=0)):
+            fail("quality: score_candidates is not the median of the members' scores")
+        lib_dev = torch.from_numpy(library).to(dev)
+        dups = mp.near_duplicates(embs, lib_dev, device=dev)
+        sims = (embs.astype(np.float64) @ library.astype(np.float64).T).max(axis=1)
+        others = np.delete(sims, copies)
+        log(f"quality: median scores of {len(embs)} crawled images over {q['ensemble']} members; near "
+            f"duplicates flagged {np.flatnonzero(dups).tolist()} (planted {copies.tolist()}): their best "
+            f"library dot {sims[copies].min():.6f} or more, the others' at most {others.max():.6f}")
+        if not np.array_equal(np.flatnonzero(dups), copies):
+            fail(f"quality: near_duplicates flagged {np.flatnonzero(dups).tolist()}, planted {copies.tolist()}")
+        threshold = float(np.quantile(scores, 0.25))
+        accepted = mp.filter_candidates(urls, embs, model, lib_dev, score_threshold=threshold, device=dev)
+        want = {urls[j] for j in range(len(urls)) if not dups[j] and scores[j] >= threshold}
+        got = [c.score for c in accepted]
+        if {c.url for c in accepted} != want or len(accepted) != len(want) or got != sorted(got, reverse=True):
+            fail(f"quality: filter_candidates accepted {len(accepted)}, expected {len(want)}")
+        mp.enqueue_candidates(queue_path, accepted)
+        return accepted, threshold, sims, others
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        host = web.Application()
+        host.router.add_get("/user/{user}/m/{multi}.json", listing)
+        host.router.add_get("/img/{j}.png", image)
+        runners = []
+        for app in (host, mp.make_queue_app(queue_path, memes)):
+            runner = web.AppRunner(app)
+            await runner.setup()
+            await web.TCPSite(runner, "127.0.0.1", 0).start()
+            runners.append(runner)
+        try:
+            base, qurl = (f"http://127.0.0.1:{r.addresses[0][1]}" for r in runners)
+            for j, p in enumerate(posts):
+                p["url"] = f"{base}/img/{j}.png"
+            prefix = "https://www.reddit.com/"
+
+            def fetch(url):
+                if not url.startswith(prefix):
+                    raise ValueError(f"the crawler asked for {url}")
+                with opener.open(base + "/" + url[len(prefix):], timeout=30) as r:
+                    return r.status, dict(r.headers), r.read()
+
+            def get(url):
+                with opener.open(url, timeout=30) as r:
+                    return r.read()
+
+            t0 = time.perf_counter()
+            crawled = await loop.run_in_executor(
+                None, lambda: list(crawler.crawl_multireddit("smoke", "memes", fetch=fetch)))
+            got = await asyncio.gather(*(loop.run_in_executor(None, get, p["url"]) for p in crawled))
+            crawl_s = time.perf_counter() - t0
+            if [p["url"] for p in crawled] != [p["url"] for p in posts] or list(got) != blobs:
+                fail(f"quality: the crawl gave {len(crawled)} posts, "
+                     f"{sum(a == b for a, b in zip(got, blobs))} images equal to the host's")
+            planted = await embedder.embed_image_bytes([blobs[j] for j in copies])
+            library[slots] = planted.astype(np.float16)
+            reset_counts()
+            t0 = time.perf_counter()
+            embs = await embedder.embed_image_bytes(list(got))
+            embed_s = time.perf_counter() - t0
+            counts = launch_counts()
+            accepted, threshold, sims, others = scored(embs, base)
+            async with ClientSession() as s:
+                first = await (await s.get(qurl + "/")).text()
+                skip = (await s.post(qurl + "/skip", allow_redirects=False)).status
+                second = await (await s.get(qurl + "/")).text()
+                assign = (await s.post(qurl + "/assign", data={"filename": "saved.png"},
+                                       allow_redirects=False)).status
+            return (crawled, crawl_s, embs, embed_s, counts, accepted, threshold, sims, others, base,
+                    (first, skip, second, assign))
+        finally:
+            for runner in runners:
+                await runner.cleanup()
+
+    (crawled, crawl_s, embs, embed_s, counts, accepted, threshold, sims, others, base,
+     (first, skip, second, assign)) = asyncio.run(run())
+    n_buckets = len(pow2_buckets(len(embs), engine.max_batch))
+    log(f"quality: crawled {len(crawled)} posts over {-(-len(posts) // page)} pages and fetched them in "
+        f"{crawl_s:.2f} s; embedded in {embed_s:.2f} s, {n_buckets} bucket(s), launches {counts}")
+    check_counts("quality crawl", counts, {
+        "ln_matmul": cfg.depth + 1, "matmul_residual": cfg.depth, "ln_mlp_residual": cfg.depth,
+        "fat_vit_mha": cfg.depth, "fused_mha": 0, "fat_vit_mha_packed_proj": 0, "adc_scores": 0,
+        "gather_rows": 0, "gather_dot": 0, "gather_gram": 0,
+    }, n_buckets)
+    saved = os.path.join(memes, "saved.png")
+    with open(queue_path) as f:
+        left = [e["url"] for e in json.load(f)]
+    ok = (accepted[0].url in first and skip == 302 and accepted[1].url in second and assign == 302
+          and os.path.exists(saved) and left == [c.url for c in accepted[2:]])
+    if ok:
+        with open(saved, "rb") as f:
+            ok = f.read() == blobs[int(accepted[1].url.rsplit("/", 1)[1][:-4])]
+    log(f"quality: {len(accepted)} candidates above the score quartile {threshold:.4f} queued; the queue "
+        f"app showed, skipped and saved one over HTTP: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"quality: the queue app: skip {skip}, assign {assign}, {len(left)} left")
+    out["pipeline"] = {"crawled": len(crawled), "copies": len(copies), "crawl_s": crawl_s,
+                       "embed_s": embed_s, "buckets": n_buckets, "launches": counts,
+                       "copy_dot_min": float(sims[copies].min()), "other_dot_max": float(others.max()),
+                       "accepted": len(accepted)}
+    return library
+
+
+def _quality_sae(library, dev, q, tmp, out):
+    """Step 7: the SAE at full width on the library rows."""
+    import glob
+
+    import torch
+
+    from meme_search_engine_tpu_torch.index.flat import FlatIndex
+    from meme_search_engine_tpu_torch.models import sae
+    from meme_search_engine_tpu_torch.models.sae_tools import exemplar_sheet_html, feature_exemplars
+    from meme_search_engine_tpu_torch.utils import profiling
+
+    d, h, k, b = q["d"], q["sae_hidden"], q["sae_k"], q["sae_batch"]
+    scfg = sae.SAEConfig(d_emb=d, d_hidden=h, top_k=k)
+    x = torch.from_numpy(library).to(dev).float()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    events, restore = _step_events(sae, "sae_forward")
+    t0 = time.perf_counter()
+    try:
+        params, counters = sae.train_sae(x, scfg, steps=q["sae_steps"], batch_size=b, lr=q["sae_lr"],
+                                         seed=0, device=dev)
+    finally:
+        restore()
+    train_s = time.perf_counter() - t0
+    step_ms = _step_ms(events)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    flops = 5 * 2.0 * b * d * h  # up, recon, and the three products of the backward
+    log(f"quality: train_sae {q['sae_steps']} steps, B={b}, {d} -> {h} top-{k}, in {train_s:.2f} s: "
+        f"{step_ms:.2f} ms a step (CUDA events, median after the first), {flops / step_ms / 1e9:.1f} TFLOP/s "
+        f"({flops / 1e12:.2f} TFLOP a step, fp32), peak {peak:.2f} GiB above the library; "
+        f"{int((counters > 0).sum())} features fired")
+    if counters.dtype != np.int32 or counters.shape != (h,) or not 0 < counters.sum() <= q["sae_steps"] * b * k:
+        fail(f"quality: SAE counters {counters.dtype} {counters.shape} sum {counters.sum()}")
+
+    # 64 rows card against CPU from the same parameters
+    rows = x[:64]
+    with torch.no_grad():
+        recon, counts = sae.sae_forward(params, rows, scfg)
+        cpu_params = {key: v.cpu() for key, v in params.items()}
+        cpu_rows = rows.cpu()
+        cpu_recon, _ = sae.sae_forward(cpu_params, cpu_rows, scfg)
+        top = torch.topk(torch.relu(cpu_rows @ cpu_params["up_w"]), k + 1, dim=1).values
+        tie = (top[:, k - 1] - top[:, k]) <= 1e-6
+        keep = torch.nonzero(~tie).flatten()
+        _, card_counts = sae.sae_forward(params, rows[keep.to(dev)], scfg)
+        _, cpu_counts = sae.sae_forward(cpu_params, cpu_rows[keep], scfg)
+        per_row = [int(sae.sae_forward(params, rows[i:i + 1], scfg)[1].sum()) for i in range(len(rows))]
+    err = float((recon.cpu() - cpu_recon).abs().max())
+    same = bool(torch.equal(card_counts.cpu(), cpu_counts))
+    log(f"quality: sae_forward on 64 rows card against CPU: recon max abs err {err:.2e} (tol 1e-4); counts "
+        f"{'equal' if same else 'DIFFERENT'} outside {int(tie.sum())} rows with the k-th and (k+1)-th "
+        f"values within 1e-6; features a row {min(per_row)}-{max(per_row)} (at most {k})")
+    if not (err <= 1e-4 and same and max(per_row) <= k and int(counts.sum()) <= 64 * k):
+        fail(f"quality: sae_forward card against CPU: err {err}, counts equal {same}, per row {max(per_row)}")
+    del cpu_params, cpu_rows, cpu_recon
+
+    # one step under profiling.trace
+    live = {key: v.clone().requires_grad_(True) for key, v in params.items()}
+    opt = torch.optim.AdamW(list(live.values()), lr=q["sae_lr"], **sae.ADAMW_DEFAULTS)
+    step = sae.make_sae_train_step(scfg, opt)
+    batch = x[torch.from_numpy(np.random.default_rng(9).integers(0, len(x), b)).to(dev)]
+    zero = torch.zeros(h, dtype=torch.int32, device=dev)
+    step(live, batch, zero)  # the optimizer's state
+    trace_dir = os.path.join(tmp, "trace_sae")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir) as prof:
+        with profiling.annotate("sae_step"):
+            step(live, batch, zero)
+    wall = (time.perf_counter() - t0) * 1e3
+    (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+    with open(path) as f:
+        events_ = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events_ if e.get("cat") == "kernel")
+    annotated = any(e.get("name") == "sae_step" for e in events_)
+    log(f"quality: the profiled SAE step's trace ({os.path.getsize(path) / 2**20:.1f} MiB) holds "
+        f"'sae_step' {annotated}, {kernels} kernel events")
+    summary = device_summary(prof, wall, "profiled SAE step")
+    if not annotated or not kernels:
+        fail(f"quality: the SAE step's trace holds the annotation {annotated}, {kernels} kernel events")
+    del live, opt, step
+
+    # feature exemplars through the flat index over the library
+    index = FlatIndex.build(library, [f"library/{i}.png" for i in range(len(library))], device=dev)
+
+    def search(vec, n):
+        s, i = index.search(vec, n)
+        return [(float(a), index.filenames[j]) for a, j in zip(s[0], i[0])]
+
+    features = np.argsort(-counters, kind="stable")[:8].tolist()
+    exemplars = feature_exemplars(params, search, features, k=10)
+    sheet = exemplar_sheet_html(exemplars, image_prefix="/")
+    if len(exemplars) != 8 or sheet.count("<h3>") != 16 or sheet.count("<img") != 160:
+        fail(f"quality: {len(exemplars)} features' exemplars, a sheet of {sheet.count('<img')} images")
+    out["sae"] = {"hidden": h, "top_k": k, "batch": b, "steps": q["sae_steps"], "train_s": train_s,
+                  "step_ms": step_ms, "tflop_per_step": flops / 1e12, "tflops": flops / step_ms / 1e9,
+                  "peak_gib": peak, "features_fired": int((counters > 0).sum()),
+                  "card_cpu_recon_err": err, "tie_rows": int(tie.sum()), "profile": summary,
+                  "trace_kernel_events": kernels}
+    del index, params, x
 
 
 def fat_rows(attention, qkvf, n_heads: int, head_dim: int, s: int) -> dict:
@@ -1998,11 +2718,18 @@ def gather_bench() -> int:
     return 0
 
 
-def train_scrape() -> int:
-    """``python3 chip_smoke.py --train-scrape``: the ``train``,
-    ``sharded_search`` and ``scrape`` phases alone, on a fresh SO400M engine
-    (seed 0) after the kernels' build; one JSON line, then the card's name
-    and power limit."""
+def check_counts(kind, counts, per_bucket, n_buckets):
+    """Each kernel's launches on a path: ``per_bucket[k]`` a bucket."""
+    for k, n in per_bucket.items():
+        if counts[k] != n * n_buckets:
+            fail(f"{k} launched {counts[k]} times on the {kind} path, "
+                 f"expected {n * n_buckets}")
+
+
+def _alone():
+    """For a phase run alone: the card's name and power limit, TF32 off,
+    the kernels' build and a fresh SO400M engine (seed 0). Returns (smi,
+    dev, cfg, engine, launch_counts, reset_counts)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2033,10 +2760,30 @@ def train_scrape() -> int:
         for m in modules:
             m.reset_launches()
 
+    return smi, dev, cfg, engine, launch_counts, reset_counts
+
+
+def train_scrape() -> int:
+    """``python3 chip_smoke.py --train-scrape``: the ``train``,
+    ``sharded_search`` and ``scrape`` phases alone, on a fresh SO400M engine
+    (seed 0) after the kernels' build; one JSON line, then the card's name
+    and power limit."""
+    smi, dev, cfg, engine, launch_counts, reset_counts = _alone()
     out = {"train": train(cfg, dev, launch_counts, reset_counts),
            "sharded_search": sharded_search(dev),
            "scrape": scrape(engine, launch_counts, reset_counts)}
     print(json.dumps(out), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+def quality_only() -> int:
+    """``python3 chip_smoke.py --quality``: the ``quality`` phase alone, on
+    a fresh SO400M engine (seed 0) after the kernels' build; one JSON line,
+    then the card's name and power limit."""
+    smi, dev, _, engine, launch_counts, reset_counts = _alone()
+    print(json.dumps({"quality": quality(engine, dev, launch_counts, reset_counts, check_counts)}),
+          flush=True)
     print(smi, flush=True)
     return 0
 
@@ -2568,12 +3315,6 @@ def main(disk_n: int = DISK_N) -> int:
             f"{time.perf_counter() - t0:.1f} s, launches {counts}")
         return outs, counts, n_buckets
 
-    def check_counts(kind, counts, per_bucket, n_buckets):
-        for k, n in per_bucket.items():
-            if counts[k] != n * n_buckets:
-                fail(f"{k} launched {counts[k]} times on the {kind} path, "
-                     f"expected {n * n_buckets}")
-
     def check_embeddings(what, e, n):
         if e.shape != (n, cfg.d_emb) or not np.isfinite(e).all():
             fail(f"{what}: bad output shape {e.shape} or non-finite values")
@@ -2732,6 +3473,10 @@ def main(disk_n: int = DISK_N) -> int:
     train_paths = {"train": train(cfg, dev, launch_counts, reset_counts),
                "sharded_search": sharded_search(dev),
                "scrape": scrape(engine, launch_counts, reset_counts)}
+
+    # the quality model, the rater stack and the SAE at the reference's
+    # widths; the crawl is embedded by the same engine
+    qual = quality(engine, dev, launch_counts, reset_counts, check_counts)
 
     # quantizers at the deployment size of docs/scale1m_report.json, through
     # the port's tool as a user runs it; the training and encoding stages
@@ -2930,6 +3675,7 @@ def main(disk_n: int = DISK_N) -> int:
     print(json.dumps({"service": svc}), flush=True)
     print(json.dumps({"disk": dk}), flush=True)
     print(json.dumps(train_paths), flush=True)
+    print(json.dumps({"quality": qual}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -2949,6 +3695,8 @@ if __name__ == "__main__":
         sys.exit(gather_bench())
     if sys.argv[1:2] == ["--train-scrape"]:
         sys.exit(train_scrape())
+    if sys.argv[1:2] == ["--quality"]:
+        sys.exit(quality_only())
     if sys.argv[1:2] == ["--disk-n"]:
         sys.exit(main(disk_n=int(sys.argv[2])))
     sys.exit(main())

@@ -1,4 +1,4 @@
-"""Read a ``.safetensors`` file with numpy alone.
+"""Read and write ``.safetensors`` files with numpy alone.
 
 The format: an 8-byte little-endian header length N, N bytes of JSON
 mapping each tensor's name to its dtype, shape and ``data_offsets``
@@ -7,6 +7,9 @@ mapping each tensor's name to its dtype, shape and ``data_offsets``
 buffers. The ``safetensors`` package is not needed: the file is mapped
 with ``numpy.memmap`` and each tensor copied out once. BF16 buffers are
 read as int16 and viewed as ``torch.bfloat16``, so no value changes.
+:func:`write_safetensors` is the inverse: the tensors in name order,
+each buffer right after the last, the header padded with spaces to a
+multiple of 8 bytes, as the ``safetensors`` package writes them.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["read_safetensors"]
+__all__ = ["read_safetensors", "write_safetensors"]
 
 _DTYPES = {
     "F64": np.float64,
@@ -31,6 +34,7 @@ _DTYPES = {
     "U8": np.uint8,
     "BOOL": np.bool_,
 }
+_NAMES = {np.dtype(v): k for k, v in _DTYPES.items() if k != "BF16"}
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
@@ -60,3 +64,30 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
         t = torch.from_numpy(a)
         out[name] = t.view(torch.bfloat16) if dtype == "BF16" else t
     return out
+
+
+def write_safetensors(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """Write numpy ``arrays`` to ``path`` (any dtype of the table but bf16,
+    which numpy has no type for)."""
+    header: Dict[str, object] = {}
+    buffers = []
+    offset = 0
+    for name in sorted(arrays):
+        a = np.asarray(arrays[name])
+        if a.dtype not in _NAMES:
+            raise ValueError(f"tensor {name!r} has unsupported dtype {a.dtype}")
+        raw = np.ascontiguousarray(a, dtype=a.dtype.newbyteorder("<")).tobytes()
+        header[name] = {
+            "dtype": _NAMES[a.dtype],
+            "shape": list(a.shape),
+            "data_offsets": [offset, offset + len(raw)],
+        }
+        buffers.append(raw)
+        offset += len(raw)
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(np.uint64(len(blob)).astype("<u8").tobytes())
+        f.write(blob)
+        for raw in buffers:
+            f.write(raw)

@@ -21,8 +21,8 @@ Counterpart of ``meme_search_engine_tpu/tools/dump_tool.py`` over the
 port's ``pipeline/processor``, ``index/kmeans`` and
 ``pipeline/build_shard``: the same subcommands and flags, plus
 ``--device`` for the three that compute (k-means, the shard builds and
-the pack's OPQ encode), ``cuda`` unless the caller asks for ``cpu``.
-``pack`` has no ``--score-model`` yet: the port has no quality model.
+the pack's OPQ encode and its ``--score-model`` scores), ``cuda``
+unless the caller asks for ``cpu``.
 """
 
 from __future__ import annotations
@@ -80,6 +80,7 @@ def main(argv=None):
     p.add_argument("--shard-dir", required=True)
     p.add_argument("--out-dir", required=True)
     p.add_argument("--opq", required=True)
+    p.add_argument("--score-model")
     p.add_argument("--cdfs")
     p.add_argument("--device", default="cuda")
 
@@ -217,11 +218,21 @@ def _pack(args):
 
     vertices, node_shards = processor.merge_shard_adjacency(shard_outputs, n)
 
+    scores = None
     cdfs = None
+    if args.score_model:
+        from ..models.score_model import WideScoreModel
+
+        model = WideScoreModel.load_safetensors(args.score_model)
+        scores = model.score_batch(vec_arr, device=args.device)
     if args.cdfs:
         from ..pipeline.descriptors import load_cdfs
 
         cdfs = load_cdfs(args.cdfs)
+    elif scores is not None:
+        from ..pipeline.descriptors import compute_cdfs
+
+        cdfs = compute_cdfs(scores, [m["timestamp"] for m in manifest])
 
     header = processor.pack_index(
         args.out_dir,
@@ -232,6 +243,7 @@ def _pack(args):
         pq,
         np.asarray(centroids, np.float32),
         medioids,
+        scores=scores,
         descriptor_cdfs=cdfs,
         device=args.device,
     )

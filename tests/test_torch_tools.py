@@ -156,6 +156,78 @@ def test_dump_tool_index_chain_equals_jax(tmp_path, capsys):
         assert (tw / name).read_bytes() == (jw / name).read_bytes(), name
 
 
+def test_dump_tool_pack_score_model_equals_jax(tmp_path, capsys):
+    """``pack --score-model``: both tools pack one split (the JAX tool's
+    sample, kmeans, shard and build-shards on a 300-entry dump) with one
+    wide model (the port's export of a JAX ``init_ensemble`` at d 16,
+    E 4, written by the port). Each scores every record, takes the CDFs
+    of its scores and timestamps and buckets them: the descriptor codes
+    and the headers must be equal, but where a score lies within 1e-6 of
+    a CDF boundary (the two packages' fp32 sums differ in order), where a
+    code may differ by one; the CDFs within 1e-6."""
+    import jax
+
+    from meme_search_engine_tpu.index.opq import ProductQuantizer
+    from meme_search_engine_tpu.models import score_model as jsm
+    from meme_search_engine_tpu_torch.models import score_model as tsm
+    from meme_search_engine_tpu_torch.pipeline.formats import IndexHeader, read_shard_input
+
+    d, rng = 16, np.random.default_rng(3)
+    dump = str(tmp_path / "000000001.dump.zst")
+    with DumpWriter(dump) as w:
+        for i in range(300):
+            emb = rng.standard_normal(d).astype(np.float32)
+            w.write(ProcessedEntry(
+                url=f"u{i}", id=f"i{i}", title="t", subreddit="s", author="a", timestamp=1000 + 7 * i,
+                embedding=emb / np.linalg.norm(emb),
+                metadata=OriginalImageMetadata("image/png", 1, (2, 2), f"f{i}")))
+    rot, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    opq = tmp_path / "opq.msgpack"
+    opq.write_bytes(ProductQuantizer(rng.standard_normal((16, d)).astype(np.float32),
+                                     rot.astype(np.float32), 4, d).to_msgpack())
+    cfg = dict(d_emb=d, n_hidden=1, n_ensemble=4, output_channels=3)
+    tree = jax.tree.map(np.asarray, jsm.init_ensemble(jax.random.PRNGKey(1), jsm.ScoreModelConfig(**cfg)))
+    wide = tsm.export_wide(tsm.params_from_jax(tree, device="cpu"), tsm.ScoreModelConfig(**cfg))
+    model = str(tmp_path / "model.safetensors")
+    wide.save_safetensors(model)
+    dims, shards = ["--d-emb", str(d)], str(tmp_path / "shards")
+    jdump_tool.main(["sample", "--dumps", dump, "--fraction", "1.0", "--output", str(tmp_path / "s.bin")])
+    jdump_tool.main(["kmeans", "--sample", str(tmp_path / "s.bin"), *dims, "--clusters", "3",
+                     "--max-iter", "20", "--output", str(tmp_path / "c.bin")])
+    jdump_tool.main(["shard", "--dumps", dump, "--centroids", str(tmp_path / "c.bin"), *dims,
+                     "--out-dir", shards])
+    jdump_tool.main(["build-shards", "--shard-dir", shards, *dims, "--r", "8", "--l", "16",
+                     "--maxc", "32", "--batch-size", "128"])
+    for tool, tag, dev in ((jdump_tool, "jax", []), (tdump_tool, "torch", ["--device", "cpu"])):
+        tool.main(["pack", "--shard-dir", shards, "--out-dir", str(tmp_path / tag), "--opq", str(opq),
+                   "--score-model", model, *dev])
+        assert "packed 300 nodes (0 dead)" in capsys.readouterr().out
+
+    jh, th = (IndexHeader.load(str(tmp_path / tag / "index.msgpack")) for tag in ("jax", "torch"))
+    assert len(th.descriptor_cdfs) == 4 and all(len(c) == 255 for c in th.descriptor_cdfs)
+    np.testing.assert_allclose(th.descriptor_cdfs, jh.descriptor_cdfs, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(th.descriptor_cdfs[3], jh.descriptor_cdfs[3])  # timestamps
+    cdfs = np.asarray(jh.descriptor_cdfs)
+    th.descriptor_cdfs = jh.descriptor_cdfs = None
+    assert th == jh
+    name = "index.pq-codes.bin"
+    assert (tmp_path / "torch" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+    codes = [np.fromfile(str(tmp_path / tag / "index.descriptor-codes.bin"), np.uint8).reshape(300, 4)
+             for tag in ("jax", "torch")]
+    assert codes[1].max() > 200 and codes[1].min() < 50  # codes spread over the buckets
+    # the scores packed: the corpus in id order, as pack builds it
+    vectors = np.zeros((300, d), np.float32)
+    for s in range(3):
+        for rid, vec in read_shard_input(f"{shards}/shard_{s}.msgpack")[1]:
+            vectors[rid] = vec
+    scores = wide.score_batch(vectors, device="cpu")
+    rows, cols = np.nonzero(codes[0] != codes[1])
+    near = [c < 3 and np.abs(cdfs[c] - scores[r, c]).min() <= 1e-6 for r, c in zip(rows, cols)]
+    steps = np.abs(codes[0][rows, cols].astype(int) - codes[1][rows, cols])
+    assert all(near) and np.all(steps == 1), (
+        f"{len(rows)} codes differ, {sum(near)} of them at a boundary tie within 1e-6")
+
+
 def test_dump_tool_compute_subcommands_refuse_a_missing_card(tmp_path):
     import torch
 
