@@ -17,7 +17,9 @@ phase at n = N (``--disk-n 1000000`` is the deployment uncut; it takes
 about 1,100 s). ``python3 chip_smoke.py --train-scrape`` runs the
 ``train``, ``sharded_search`` and ``scrape`` phases alone (see
 ``train_scrape``), ``python3 chip_smoke.py --quality`` the ``quality``
-phase alone (see ``quality_only``).
+phase alone (see ``quality_only``), ``python3 chip_smoke.py --routes`` the
+``text_routes`` and ``model_parallel`` phases and the ``flash_mha`` check
+alone (see ``routes_only``).
 
 Phases, in order; any failure exits non-zero with no result line:
 
@@ -80,6 +82,26 @@ Phases, in order; any failure exits non-zero with no result line:
    All outputs must be finite and unit-norm, and three embeddings of
    each tower must agree (cos >= 0.999) with the same weights run on the
    CPU through the plain versions.
+   - The text tower's routes (``text_routes``): 256 texts (two buckets of
+     128) through (a) the default route, (b) ``MSE_TEXT_FUSED=1`` with
+     its three sub-blocks ``xla``, (c) with all three ``fused`` and (d)
+     ``attn_impl="fat_interpret"``, each with its exact launches a bucket
+     (a, b: ``fused_mha`` 27; c: ``ln_matmul``, ``fused_mha``,
+     ``matmul_residual``, ``ln_mlp_residual`` 27 each; d: ``ln_matmul``,
+     ``fat_vit_mha``, ``matmul_residual``, ``ln_mlp_residual`` 27 each),
+     cos >= 0.999 against (a) (max |d| logged), three texts against the
+     CPU plain path of the same route and texts/s (median of three); the
+     routes' weight bytes on the card; then kernels 1 (the fused route's
+     QKV at N = 3456 and the fat route's with the key mask), 2, 3 and 7
+     (SP = 64) at the routes' shapes against their plain versions at B = 2
+     and 128, timed at 128 beside the bound and the library call. Then
+     ``model_parallel``: the engine over ``[[cuda:0, cuda:0]]`` with
+     ``model_parallel=True`` (two shards of the weights on the card),
+     16 images and 16 texts against the single-device engine (rtol =
+     atol = 2e-2, cos >= 0.999), each kernel once a shard a layer (the MAP
+     head's ``ln_matmul`` once a shard), each shard's weight bytes,
+     images/s at 128 and texts/s at 256; then ``flash_mha`` against
+     ``mha_xla`` at (2, 729, 16, 72) in fp32 (2e-3).
    - The small-scale service on the same engine (``service``): 1e5 rows
      in a temporary SQLite state (512 images embedded by the engine, the
      rest unit-norm fp16 rows from a seed), ``build_index`` + swap, 64
@@ -137,7 +159,9 @@ Phases, in order; any failure exits non-zero with no result line:
      hierarchical synthetic dump, balanced k-means on the card, the top-2
      split, every shard's ``build_shard`` with 1,024 OOD queries (R/L/maxc
      64/192/750, batch 1,024, bf16), OPQ 64x256 on a 100k sample, the merge
-     and the pack into 4096-B records (``--frugal-disk``), QPS at 1, 2 and 4
+     and the pack into 4096-B records (``--frugal-disk``; the tool holds
+     the chip lease: ``.tpu_busy.json`` names this process at every safe
+     point and is gone after the run), QPS at 1, 2 and 4
      threads and eval recall@20 against the exact oracle (search list 500,
      beamwidth 4, 256 serve and 512 eval queries), each stage timed. Each
      shard's build must launch ``gather_dot`` once a hop, round (the merge
@@ -166,7 +190,8 @@ Phases, in order; any failure exits non-zero with no result line:
 5. One JSON line with every kernel's numbers, one with the quantizer
    path's, one with the service's, one with the disk deployment's, one
    with the ``train``, ``sharded_search`` and ``scrape`` phases', one with
-   the ``quality`` phase's, then
+   the ``quality`` phase's, one with the ``text_routes``, ``model_parallel``
+   and ``flash_mha`` results, then
    the card's name and power limit, then ``{"ok": true, "device": {...}}`` as
    the last line.
 """
@@ -485,6 +510,7 @@ def _disk(engine, dev, timed, launch_counts, reset_counts, check_counts, n, clus
     from meme_search_engine_tpu_torch.serving.client import InProcessEmbedder
     from meme_search_engine_tpu_torch.serving.engine import pow2_buckets
     from meme_search_engine_tpu_torch.tools import scale_bench
+    from meme_search_engine_tpu_torch.utils import tpu_lease
 
     r, l, maxc, batch, n_ood = 64, 192, 750, 1024, 1024
     search_list, beamwidth, k = 500, 4, 20
@@ -555,8 +581,23 @@ def _disk(engine, dev, timed, launch_counts, reset_counts, check_counts, n, clus
                           launches=got)
         return graph, med
 
+    # the chip lease: at every safe point of the build the busy file names
+    # this process and the workdir; it is gone after the run
+    lease = {"pause_points": 0, "advertised": 0}
+    real_pause = tpu_lease.pause_point
+    holder = {"pid": os.getpid(), "workdir": os.path.abspath(wd)}
+
+    def pause_point(log=None):
+        lease["pause_points"] += 1
+        if os.path.exists(tpu_lease.BUSY_PATH):
+            with open(tpu_lease.BUSY_PATH) as f:
+                lease["advertised"] += json.load(f) == holder
+        real_pause(log)
+
     build_shard.build_shard_graph = build
-    wrapped += [stage(scale_bench, "_stage_dump", "dump"),
+    tpu_lease.pause_point = pause_point
+    wrapped += [(tpu_lease, "pause_point", real_pause),
+                stage(scale_bench, "_stage_dump", "dump"),
                 stage(processor, "merge_shard_adjacency", "merge"),
                 stage(processor, "pack_index", "pack_index")]
     argv = ["--workdir", wd, "--n", str(n), "--clusters", str(clusters), "--r", str(r), "--l", str(l),
@@ -576,6 +617,12 @@ def _disk(engine, dev, timed, launch_counts, reset_counts, check_counts, n, clus
         for owner, name, fn in wrapped:
             setattr(owner, name, fn)
     tool_s = time.perf_counter() - t0
+    lease["busy_after"] = os.path.exists(tpu_lease.BUSY_PATH)
+    log(f"disk: the chip lease: {lease['advertised']} of {lease['pause_points']} safe points saw "
+        f"{tpu_lease.BUSY_PATH} name this process; after the run it "
+        f"{'still exists' if lease['busy_after'] else 'is gone'}")
+    if not 0 < lease["advertised"] == lease["pause_points"] or lease["busy_after"]:
+        fail(f"disk: scale_bench did not hold the chip lease as advertised: {lease}")
     run_launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     with open(os.path.join(wd, "report.json")) as f:
@@ -816,7 +863,7 @@ def _disk(engine, dev, timed, launch_counts, reset_counts, check_counts, n, clus
         "n": n, "d": d, "clusters": clusters,
         "cut": None if n >= 1_000_000 else DISK_CUT if n == DISK_N else f"n 1e6 -> {n}",
         "search_list": search_list,
-        "beamwidth": beamwidth, "tool_s": tool_s, "stages_s": stage_s,
+        "beamwidth": beamwidth, "tool_s": tool_s, "stages_s": stage_s, "lease": lease,
         "shard_build_s": {"min": min(build_walls), "median": float(np.median(build_walls)),
                           "max": max(build_walls), "sum": float(sum(build_walls))},
         "shards": shards, "balance": balance, "merged": merged_ok, "degree": degree,
@@ -2718,6 +2765,347 @@ def gather_bench() -> int:
     return 0
 
 
+def check_kernel(name, b, kern, plain, tol, rows) -> float:
+    """One kernel call against its plain version on the same inputs; fails
+    the script where they disagree. ``rows``: None for every element at
+    rtol = atol = tol, else the first rows of dim 1 at atol tol only
+    (attention's valid rows, as tests/test_attention.py)."""
+    import torch
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err, ok = compare(got, want, tol, rows)
+    if rows is not None:
+        ok = err <= tol
+    log(f"check {name} B={b}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version at B={b}: max_abs_err {err}")
+    return err
+
+
+def timed_row(name, b, kern, plain, lib, flops, nbytes, exp_ops=0.0) -> dict:
+    """A kernel's CUDA-event time beside its plain version's, the library
+    call's and its bound (the larger of its operations, or exponentials,
+    over the card's peak and its bytes over the memory rate)."""
+    inner = 20 if flops < 1e10 else 1  # a kernel of tens of microseconds
+    t_k = time_ms(kern, reps=10, inner=inner)
+    t_p = time_ms(plain, reps=3, inner=inner)
+    t_l = time_ms(lib, reps=10, inner=inner)
+    t_ops = max(flops / PEAK_FLOPS, exp_ops / PEAK_EXP) * 1e3
+    t_bytes = nbytes / PEAK_BW * 1e3
+    row = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "tflops": flops / t_k / 1e9, "peak_share": flops / t_k * 1e3 / PEAK_FLOPS}
+    log(f"time {name} B={b}: kernel {t_k:.4f} ms, plain {t_p:.3f} ms, library {t_l:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tflops']:.1f} TFLOP/s = "
+        f"{row['peak_share']:.1%} of the bf16 peak")
+    return row
+
+
+def text_kernel_cases(cfg, rn, b: int) -> dict:
+    """Kernels 1, 2, 3 and 7 at the text routes' shapes, B texts of S = 64
+    (B * 64 rows): the fused route's packed QKV (N = 3 x 1152 = 3456, no
+    key mask), its o-projection and its MLP (hidden 4304 padded to 4352),
+    and the fat route's QKV (N = 3 x 16 x 80, the key mask at n_valid =
+    S) and attention over SP = 64, half a 128-row query tile a text.
+    name -> (kernel call, plain call, library call, flops, bytes,
+    exponentials, tolerance, rows compared)."""
+    import torch
+    import torch.nn.functional as F
+
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.ops import attention, fused
+
+    d, s, h, m_real = cfg.text_width, cfg.text_len, cfg.text_num_heads, cfg.text_mlp_dim
+    dh = d // h
+    hc = h * attention.fat_width(dh)
+    x, o_in = rn(b, s, d), rn(b, s, d)
+    x2, m, el = x.reshape(-1, d), b * s, 2
+    g, be = (1 + rn(d, std=0.1)).contiguous(), rn(d, std=0.1)
+
+    def dense(i, o):
+        return {"w": rn(i, o, std=i**-0.5), "b": rn(o, std=0.02)}
+
+    attn = {n: dense(d, d) for n in "qkvo"}
+    wqkv = torch.cat([attn[n]["w"] for n in "qkv"], 1).contiguous()
+    bqkv = torch.cat([attn[n]["b"] for n in "qkv"]).contiguous()
+    fat = siglip._fat_qkv_weights(attn, h, dh)
+    wfat = torch.cat([w for w, _ in fat], 1).contiguous()
+    bfat = torch.cat([bb for _, bb in fat]).contiguous()
+    fc1, fc2 = dense(d, m_real), dense(m_real, d)
+    w1, b1, w2 = (t.contiguous() for t in fused.pad_hidden(fc1["w"], fc1["b"], fc2["w"]))
+    kmask = (s, h, attention.fat_width(dh), dh)
+    qkvf = fused.ln_matmul_plain(x, g, be, wfat, bfat, k_mask=kmask)
+    heads = qkvf.view(b, s, 3, h, -1)[..., :dh]
+    qh, kh, vh = (heads[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+
+    def ln():
+        return F.layer_norm(x2, (d,), g, be, 1e-6)
+
+    return {
+        "ln_matmul[text_qkv]": (
+            lambda: fused.ln_matmul(x, g, be, wqkv, bqkv),
+            lambda: fused.ln_matmul_plain(x, g, be, wqkv, bqkv),
+            lambda: torch.addmm(bqkv, ln(), wqkv),
+            2.0 * m * d * 3 * d, el * (m * d + 3 * d * d + 3 * m * d + 2 * d + 3 * d), 0.0,
+            CHECK_TOL, None,
+        ),
+        "ln_matmul[text_fat_qkv]": (
+            lambda: fused.ln_matmul(x, g, be, wfat, bfat, k_mask=kmask),
+            lambda: fused.ln_matmul_plain(x, g, be, wfat, bfat, k_mask=kmask),
+            lambda: torch.addmm(bfat, ln(), wfat),
+            2.0 * m * d * 3 * hc, el * (m * d + 3 * d * hc + 3 * m * hc + 2 * d + 3 * hc), 0.0,
+            CHECK_TOL, None,
+        ),
+        "matmul_residual[text_o]": (
+            lambda: fused.matmul_residual(o_in, attn["o"]["w"], attn["o"]["b"], x),
+            lambda: fused.matmul_residual_plain(o_in, attn["o"]["w"], attn["o"]["b"], x),
+            lambda: torch.addmm(x2, o_in.reshape(m, d), attn["o"]["w"]),
+            2.0 * m * d * d, el * (3 * m * d + d * d + d), 0.0, CHECK_TOL, None,
+        ),
+        "ln_mlp_residual[text]": (
+            lambda: fused.ln_mlp_residual(x, g, be, w1, b1, w2, fc2["b"]),
+            lambda: fused.ln_mlp_residual_plain(x, g, be, fc1["w"], fc1["b"], fc2["w"], fc2["b"]),
+            lambda: torch.addmm(x2, F.gelu(torch.addmm(fc1["b"], ln(), fc1["w"]), approximate="tanh"),
+                                fc2["w"]),
+            4.0 * m * d * m_real, el * (2 * m * d + 2 * d * m_real + m_real + 3 * d), 0.0,
+            CHECK_TOL, None,
+        ),
+        # every key valid, so SDPA without a mask at scale 1 (q pre-scaled)
+        "fat_vit_mha_packed[text]": (
+            lambda: attention.fat_vit_mha_packed(qkvf, h, dh),
+            lambda: attention.fat_vit_mha_packed_plain(qkvf, h, dh),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0),
+            2.0 * b * h * s * s * (hc // h + dh + 1), el * (3 * m * hc + m * h * dh), float(b * h * s * s),
+            ATTN_TOL, s,
+        ),
+    }
+
+
+# The text tower's four routes (models/siglip.encode_text): the routing
+# variables, cfg.attn_impl, and each kernel's launches a layer
+_TEXT_VARS = ("MSE_TEXT_FUSED", "MSE_TEXT_QKV", "MSE_TEXT_O", "MSE_TEXT_MLP")
+TEXT_ROUTES = {
+    "default": ({}, "auto", {"fused_mha": 1}),
+    "fused_xla": (dict(zip(_TEXT_VARS, ("1", "xla", "xla", "xla"))), "auto", {"fused_mha": 1}),
+    "fused": (dict(zip(_TEXT_VARS, ("1", "fused", "fused", "fused"))), "auto",
+              {"fused_mha": 1, "ln_matmul": 1, "matmul_residual": 1, "ln_mlp_residual": 1}),
+    "fat": ({}, "fat_interpret",
+            {"fat_vit_mha": 1, "ln_matmul": 1, "matmul_residual": 1, "ln_mlp_residual": 1}),
+}
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def text_routes(engine, launch_counts, reset_counts, n_text: int = 2 * B_TIME) -> dict:
+    """The ``text_routes`` phase: SO400M's text tower at full width and
+    depth through the engine on ``n_text`` texts (two buckets of 128) by
+    each route of ``TEXT_ROUTES``: (a) the default, (b) ``MSE_TEXT_FUSED=1``
+    with the three sub-blocks ``xla``, (c) with all three ``fused``, (d)
+    ``attn_impl="fat_interpret"``. Each route's exact launches a bucket,
+    its embeddings against (a)'s (cos >= 0.999, max |d| logged) and three
+    texts against the CPU plain path of the same route (cos >= 0.999),
+    texts/s as the median of three; then kernels 1, 2, 3 and 7 at the
+    routes' shapes, held against their plain versions at B = 2 and 128
+    and timed at 128. Returns the phase's JSON object."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine, pow2_buckets
+
+    t_phase = time.perf_counter()
+    cfg = engine.cfg
+    rng = np.random.default_rng(14)
+    words = ["meme", "cat", "dog", "gpu", "tpu", "funny", "sad", "frog", "reaction", "image"]
+    texts = [" ".join(rng.choice(words, size=rng.integers(1, 20))) for _ in range(n_text)]
+    probe = [0, 129, n_text - 1]
+    n_buckets = len(pow2_buckets(n_text, engine.max_batch))
+    zero = {k: 0 for k in launch_counts()}
+    cpu = EmbeddingEngine(engine.params, cfg, max_batch=4, device="cpu")
+    saved = {k: os.environ.get(k) for k in _TEXT_VARS}
+    out: dict = {"texts": n_text, "buckets": n_buckets, "routes": {}}
+    ref = None
+    try:
+        for name, (env, impl, per_layer) in TEXT_ROUTES.items():
+            for k in _TEXT_VARS:
+                os.environ.pop(k, None)
+            os.environ.update(env)
+            route = copy.copy(engine)
+            route.cfg = dataclasses.replace(cfg, attn_impl=impl)
+            route.embed_texts(texts)  # builds the route's layout on its first use
+            reset_counts()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e = route.embed_texts(texts)
+                times.append(time.perf_counter() - t0)
+            counts = launch_counts()
+            check_counts(f"text route {name}", counts,
+                         {**zero, **{k: v * cfg.text_depth for k, v in per_layer.items()}}, 3 * n_buckets)
+            if e.shape != (n_text, cfg.d_emb) or not np.isfinite(e).all():
+                fail(f"text route {name}: bad output {e.shape}")
+            ref = e if ref is None else ref
+            cos, dmax = float((e * ref).sum(-1).min()), float(np.abs(e - ref).max())
+            cpu_route = copy.copy(cpu)
+            cpu_route.cfg = route.cfg
+            cpu_cos = (cpu_route.embed_texts([texts[i] for i in probe]) * e[probe]).sum(-1)
+            ms = float(np.median(times)) * 1e3
+            out["routes"][name] = {
+                "texts_per_s": n_text / ms * 1e3, "ms": ms, "times_ms": [t * 1e3 for t in times],
+                "launches_per_bucket": {k: v // (3 * n_buckets) for k, v in counts.items() if v},
+                "cos_min_vs_default": cos, "max_abs_diff_vs_default": dmax,
+                "cpu_cos": [float(c) for c in cpu_cos],
+            }
+            log(f"text route {name}: {n_text} texts in {ms:.1f} ms (median of 3), "
+                f"{n_text / ms * 1e3:.1f} texts/s; launches a bucket "
+                f"{out['routes'][name]['launches_per_bucket']}; against the default route cos min "
+                f"{cos:.6f}, max |d| {dmax:.3e}; against the CPU plain path cos {cpu_cos.round(6).tolist()}")
+            if cos < 0.999 or not (cpu_cos >= 0.999).all():
+                fail(f"text route {name} disagrees: cos {cos} against the default route, "
+                     f"{cpu_cos.tolist()} against the CPU")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del cpu
+    txt = engine.params["txt"]
+    mlp = txt["blocks"]["mlp"]
+    out["weight_bytes"] = {
+        "text_tower": _tree_bytes({k: v for k, v in txt.items() if k != "layouts"}),
+        "text_mlp_padded": _tree_bytes(mlp),
+        "text_mlp_unpadded": 2 * cfg.text_depth * cfg.text_width * cfg.text_mlp_dim * 2
+        + cfg.text_depth * (cfg.text_mlp_dim + cfg.text_width) * 2,
+        "fused_qkv": _tree_bytes(txt["layouts"].get("qkv", [])),
+        "fat_qkv": _tree_bytes([blk["qkv"] for blk in txt["layouts"].get("fat", [])]),
+    }
+    log(f"text routes: weight bytes on the card {out['weight_bytes']}")
+
+    gen = torch.Generator(device=engine.device).manual_seed(1414)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=engine.device) * std).to(torch.bfloat16)
+
+    kernels: dict = {}
+    for b in (B_CHECK, B_TIME):
+        for name, (kern, plain, lib, flops, nbytes, exps, tol, rows) in text_kernel_cases(cfg, rn, b).items():
+            kernels.setdefault(name, {})[f"max_abs_err_b{b}"] = check_kernel(name, b, kern, plain, tol, rows)
+            if b == B_TIME:
+                kernels[name].update(timed_row(name, b, kern, plain, lib, flops, nbytes, exps))
+        torch.cuda.empty_cache()
+    out["kernels"] = kernels
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"text routes: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def model_parallel(engine, launch_counts, reset_counts) -> dict:
+    """The ``model_parallel`` phase: the SO400M engine (seed 0) over
+    ``mesh=[[d, d]]`` with ``model_parallel=True``, ``d`` the engine's card,
+    two model shards on one card: requests of 16 images and 16 texts against the
+    single-device ``engine`` (rtol = atol = 2e-2 and cos >= 0.999, as
+    tests/test_parallel.py:91-106), each kernel once a shard a layer (the
+    MAP head's ``ln_matmul`` once a shard); the weight bytes of each
+    shard; images/s at 128 and texts/s at 256 (median of three)."""
+    import torch
+
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
+
+    t_phase = time.perf_counter()
+    cfg, dev = engine.cfg, engine.device
+    mem0 = torch.cuda.memory_allocated()
+    params = siglip.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tp = EmbeddingEngine(params, cfg, max_batch=engine.max_batch, mesh=[[dev, dev]], model_parallel=True)
+    del params
+    tree = tp.params
+    shard_bytes = [_tree_bytes(tree["img"]["blocks"][c]) + _tree_bytes(tree["img"]["map_head"][c])
+                   + _tree_bytes(tree["txt"]["blocks"][c]) for c in range(2)]
+    shared = _tree_bytes({t: {k: v for k, v in tree[t].items() if k not in ("blocks", "map_head")}
+                          for t in ("img", "txt")})
+    log(f"model_parallel: 2 shards on {dev}, weight bytes a shard {shard_bytes} (blocks and MAP head), "
+        f"{shared} held once (embeddings, final LN, head); the engine took "
+        f"{(torch.cuda.memory_allocated() - mem0) / 2**30:.3f} GiB")
+    rng = np.random.default_rng(15)
+    r = cfg.image_size
+    images = rng.integers(0, 256, (16, r, r, 3), dtype=np.uint8)
+    words = ["meme", "cat", "dog", "gpu", "tpu", "funny", "sad", "frog", "reaction", "image"]
+    texts = [" ".join(rng.choice(words, size=rng.integers(1, 12))) for _ in range(16)]
+    zero = {k: 0 for k in launch_counts()}
+    out = {"shards": 2, "weight_bytes_per_shard": shard_bytes, "weight_bytes_shared": shared}
+    for kind, embed, single, item, per_bucket in (
+        ("image", tp.embed_image_arrays, engine.embed_image_arrays, images,
+         {"ln_matmul": 2 * cfg.depth + 2, "fat_vit_mha": 2 * cfg.depth,
+          "matmul_residual": 2 * cfg.depth, "ln_mlp_residual": 2 * cfg.depth}),
+        ("text", tp.embed_texts, engine.embed_texts, texts, {"fused_mha": 2 * cfg.text_depth}),
+    ):
+        reset_counts()
+        got = embed(item)
+        counts = launch_counts()
+        check_counts(f"model_parallel {kind}", counts, {**zero, **per_bucket}, 1)
+        want = single(item)
+        err = float(np.abs(got - want).max())
+        cos = float((got * want).sum(-1).min())
+        ok = np.allclose(got, want, rtol=2e-2, atol=2e-2) and cos >= 0.999
+        log(f"model_parallel {kind}: 16 against the single-device engine: max |d| {err:.3e}, "
+            f"cos min {cos:.6f} {'ok' if ok else 'FAIL'}; launches {counts}")
+        if not ok:
+            fail(f"the model-parallel engine disagrees with one device on {kind}s: {err}, cos {cos}")
+        out[kind] = {"max_abs_err": err, "cos_min": cos,
+                     "launches": {k: v for k, v in counts.items() if v}}
+    batch = rng.integers(0, 256, (B_TIME, r, r, 3), dtype=np.uint8)
+    many = [" ".join(rng.choice(words, size=rng.integers(1, 20))) for _ in range(2 * B_TIME)]
+    for kind, embed, item in (("images_per_s", tp.embed_image_arrays, batch),
+                              ("texts_per_s", tp.embed_texts, many)):
+        embed(item)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            embed(item)
+            times.append(time.perf_counter() - t0)
+        out[kind] = len(item) / float(np.median(times))
+        out[f"{kind}_times_s"] = times
+        log(f"model_parallel: {kind} {out[kind]:.1f} ({len(item)} a call, median of 3)")
+    del tp, tree
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"model_parallel: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def flash_check(dev) -> dict:
+    """``ops.attention.flash_mha`` (plain torch, fp32, as the JAX package's
+    XLA-only blocked attention) against ``mha_xla`` on the card at (2, 729,
+    16, 72), rtol = atol = 2e-3 (tests/test_attention.py:35-39)."""
+    import torch
+
+    from meme_search_engine_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = (torch.randn((2, 729, 16, 72), generator=gen, device=dev) for _ in range(3))
+    got, want = attention.flash_mha(q, k, v), attention.mha_xla(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=2e-3, atol=2e-3))
+    ms = time_ms(lambda: attention.flash_mha(q, k, v), reps=5)
+    log(f"flash_mha (2, 729, 16, 72) fp32 against mha_xla: max |d| {err:.3e} {'ok' if ok else 'FAIL'}; "
+        f"{ms:.3f} ms")
+    if not ok:
+        fail(f"flash_mha disagrees with mha_xla: {err}")
+    return {"max_abs_err": err, "ms": ms}
+
+
 def check_counts(kind, counts, per_bucket, n_buckets):
     """Each kernel's launches on a path: ``per_bucket[k]`` a bucket."""
     for k, n in per_bucket.items():
@@ -2772,6 +3160,20 @@ def train_scrape() -> int:
     out = {"train": train(cfg, dev, launch_counts, reset_counts),
            "sharded_search": sharded_search(dev),
            "scrape": scrape(engine, launch_counts, reset_counts)}
+    print(json.dumps(out), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+def routes_only() -> int:
+    """``python3 chip_smoke.py --routes``: the ``text_routes`` and
+    ``model_parallel`` phases and the blocked attention's check alone, on a
+    fresh SO400M engine (seed 0) after the kernels' build; one JSON line,
+    then the card's name and power limit."""
+    smi, _, _, engine, launch_counts, reset_counts = _alone()
+    out = {"text_routes": text_routes(engine, launch_counts, reset_counts),
+           "model_parallel": model_parallel(engine, launch_counts, reset_counts),
+           "flash_mha": flash_check(engine.device)}
     print(json.dumps(out), flush=True)
     print(smi, flush=True)
     return 0
@@ -2952,16 +3354,7 @@ def main(disk_n: int = DISK_N) -> int:
             ),
         }
 
-    def check(name, b, kern, plain, tol, rows) -> float:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err, ok = compare(got, want, tol, rows)
-        if rows is not None:  # attention: atol only, as tests/test_attention.py
-            ok = err <= tol
-        log(f"check {name} B={b}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"{name} disagrees with its plain version at B={b}: max_abs_err {err}")
-        return err
+    check = check_kernel
 
     def all_cases(b):
         return {**cases(b), **text_cases(b, TS)}
@@ -3463,6 +3856,12 @@ def main(disk_n: int = DISK_N) -> int:
         + f"; sum {split_total:.1f} ms of {text_ms / text_buckets:.1f} ms per bucket")
     log(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
+    # the text tower's other routes, the model-parallel engine and the
+    # blocked attention
+    routes = text_routes(engine, launch_counts, reset_counts)
+    mp = model_parallel(engine, launch_counts, reset_counts)
+    flash = flash_check(dev)
+
     # the small-scale service on the same engine
     svc = service(engine, dev, reset_counts, launch_counts, check_counts)
     del worker, batch_out, text_out
@@ -3611,11 +4010,20 @@ def main(disk_n: int = DISK_N) -> int:
     }
     keys = ("max_abs_err", "max_abs_err_b128", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "peak_share")
+    # each kernel at the text routes' shapes, and its launches a bucket on
+    # each text route and on the model-parallel engine's requests
+    text_rows = {"ln_matmul": ("text_qkv", "text_fat_qkv"), "matmul_residual": ("text_o",),
+                 "ln_mlp_residual": ("text",), "fat_vit_mha_packed": ("text",)}
     kernels = []
     for name, (source, replaces, counter, run_counts) in meta.items():
         e = {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
              "launches": run_counts[counter]}
         e.update({k: results[name][k] for k in keys})
+        for part in text_rows.get(name, ()):
+            e[part] = routes["kernels"][f"{name}[{part}]"]
+        e["launches_text_routes_per_bucket"] = {
+            r: v["launches_per_bucket"].get(counter, 0) for r, v in routes["routes"].items()}
+        e["launches_model_parallel"] = {k: mp[k]["launches"].get(counter, 0) for k in ("image", "text")}
         if name == "ln_matmul":
             e["map_kv"] = {k: results["ln_matmul[map_kv]"][k] for k in keys}
             e["normalised_copy_route_ms"] = results[name]["normalised_copy_route_ms"]
@@ -3676,6 +4084,7 @@ def main(disk_n: int = DISK_N) -> int:
     print(json.dumps({"disk": dk}), flush=True)
     print(json.dumps(train_paths), flush=True)
     print(json.dumps({"quality": qual}), flush=True)
+    print(json.dumps({"text_routes": routes, "model_parallel": mp, "flash_mha": flash}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -3697,6 +4106,8 @@ if __name__ == "__main__":
         sys.exit(train_scrape())
     if sys.argv[1:2] == ["--quality"]:
         sys.exit(quality_only())
+    if sys.argv[1:2] == ["--routes"]:
+        sys.exit(routes_only())
     if sys.argv[1:2] == ["--disk-n"]:
         sys.exit(main(disk_n=int(sys.argv[2])))
     sys.exit(main())

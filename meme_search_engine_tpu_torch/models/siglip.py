@@ -13,9 +13,13 @@ bf16 cast points.
   ``matmul_residual`` (o-projection + residual) and ``ln_mlp_residual``;
   the MAP head runs ``ln_matmul`` once more. With "xla" it runs the plain
   encoder below and the non-fat MAP head, as the JAX package does.
-- ``encode_text`` runs the plain pre-LN encoder (``_encoder``), whose
-  self-attention goes through ``ops.attention.mha``: the fused attention
-  kernel (``csrc/mha.cu``) on the card, as ``fused_mha_pallas`` on the TPU.
+- ``encode_text`` runs the plain pre-LN encoder (``_encoder``) by default,
+  whose self-attention goes through ``ops.attention.mha``: the fused
+  attention kernel (``csrc/mha.cu``) on the card, as ``fused_mha_pallas``
+  on the TPU. Its two other routes are the JAX package's
+  (``encode_text``): ``_encoder_text`` under ``MSE_TEXT_FUSED=1`` on the
+  card, and the image tower's fat-layout encoder under
+  ``attn_impl="fat_interpret"``.
 - ``siglip_loss`` (the sigmoid loss, JAX ``siglip.py:792``) builds a graph
   that autograd differentiates. No kernel here has a backward, nor has any
   Pallas kernel of the JAX package, whose train step runs off a TPU. So
@@ -37,11 +41,24 @@ On the card the dense layers are bf16 GEMMs with fp32 accumulation.
 Parameters are random-init (``init_params``), converted from the JAX
 package's tree (``models/convert.py``) or loaded from a HuggingFace
 checkpoint (``load_hf_siglip``). ``prepare_params`` replaces the image
-tower's leaves with the kernel layouts once at load time.
+tower's leaves with the kernel layouts once at load time, and pads the
+text tower's MLP for the kernels.
+
+Model parallelism in one process (``serving/engine.py``): where a tree
+holds a *list* of shards in place of ``blocks`` (and of the image tower's
+``map_head``), each shard a column's Megatron slice (q, k, v and fc1 by
+output, o and fc2 by input; ``parallel/mesh.model_shards``), every
+encoder runs each sub-block once a shard on the shard's own heads or
+hidden slice, on the shard's device, and sums the row-parallel outputs by
+chaining them: each shard adds its term onto the sum of the shards before
+it (with the kernels, through ``matmul_residual``'s residual input), so
+the bias and the residual are added once, by shard 0, and no extra pass
+runs. One shard (a dict, not a list) is the single-device model.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Any, Dict
@@ -50,7 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import fat_vit_mha_packed, fat_width, mha, mha_xla
+from ..ops.attention import fat_layout_ok, fat_vit_mha_packed, fat_width, fused_mha, mha, mha_xla
 from ..ops.fused import ln_matmul, ln_mlp_residual, matmul_residual, pad_hidden
 from .safetensors_io import read_safetensors
 
@@ -241,8 +258,13 @@ def _fat_qkv_weights(attn: Params, num_heads: int, head_dim: int):
     )
 
 
+def _shards(tree) -> list:
+    """The shards of a model-parallel subtree (a list), or [tree]."""
+    return tree if isinstance(tree, list) else [tree]
+
+
 def _is_prepared(img: Params) -> bool:
-    return "qkv" in img["blocks"]
+    return "qkv" in _shards(img["blocks"])[0]
 
 
 def _uses_fat_path(cfg: SigLIPConfig) -> bool:
@@ -250,32 +272,53 @@ def _uses_fat_path(cfg: SigLIPConfig) -> bool:
 
 
 def prepare_params(params: Params, cfg: SigLIPConfig) -> Params:
-    """Replace the image tower's leaves with the kernels' layouts.
+    """Put both towers into the kernels' layouts; returns a new top-level
+    dict, the scalars passed through.
 
-    Done once at load time. Per layer, q/k/v become one packed fat QKV
-    projection (``blocks["qkv"]``), ``attn.o`` becomes ``blocks["o"]`` and
-    the MLP weights become ``blocks["fc1"]``/``blocks["fc2"]`` with the
-    hidden width zero-padded to the kernels' tile. The MAP head's k and v
-    become one packed projection (``map_head["kv"]``). The tree keeps only
-    what ``encode_image`` reads, so no weight is held twice. Returns a new
-    top-level dict; the text tower and the scalars are passed through, and
-    with ``attn_impl="xla"`` (the plain image route) the whole tree is.
+    Done once at load time. Image tower (unless ``attn_impl="xla"``, the
+    plain route, which reads it as it is): per layer, q/k/v become one
+    packed fat QKV projection (``blocks["qkv"]``), ``attn.o`` becomes
+    ``blocks["o"]`` and the MLP weights become ``blocks["fc1"]`` /
+    ``blocks["fc2"]`` with the hidden width zero-padded to the kernels'
+    tile. The MAP head's k and v become one packed projection
+    (``map_head["kv"]``). The tree keeps only what ``encode_image`` reads,
+    so no weight is held twice. Text tower: the MLP's hidden width is
+    zero-padded the same way (in place of the unpadded weights, which
+    leaves the plain route's math as it is: gelu(0) = 0 meets zero rows of
+    fc2), and an empty ``layouts`` dict holds the fused and fat routes'
+    packed QKV weights, built on each route's first use
+    (:func:`_text_layout`). A shard's head count is read off its q
+    weights, so a model-parallel column's slice is prepared alike.
     """
+    out = dict(params)
     img = params.get("img")
-    if img is None or _is_prepared(img) or not _uses_fat_path(cfg):
-        return params
+    if img is not None and _uses_fat_path(cfg) and not _is_prepared(img):
+        out["img"] = _prepare_image(img, cfg)
+    txt = params.get("txt")
+    if txt is not None and "layouts" not in txt:
+        fc1, fc2 = txt["blocks"]["mlp"]["fc1"], txt["blocks"]["mlp"]["fc2"]
+        w1, b1, w2 = pad_hidden(fc1["w"], fc1["b"], fc2["w"])
+        mlp = {"fc1": {"w": w1.contiguous(), "b": b1.contiguous()},
+               "fc2": {"w": w2.contiguous(), "b": fc2["b"]}}
+        out["txt"] = {**txt, "blocks": {**txt["blocks"], "mlp": mlp}, "layouts": {}}
+    return out
+
+
+def _fat_qkv(attn: Params, head_dim: int) -> Params:
+    """The packed fat q|k|v projection (:func:`_fat_qkv_weights`) over the
+    heads the q weights hold (a model-parallel shard holds some)."""
+    fat = _fat_qkv_weights(attn, attn["q"]["w"].shape[-1] // head_dim, head_dim)
+    return {"w": torch.cat([w for w, _ in fat], dim=-1).contiguous(),
+            "b": torch.cat([b for _, b in fat], dim=-1).contiguous()}
+
+
+def _prepare_image(img: Params, cfg: SigLIPConfig) -> Params:
     blocks, mh = img["blocks"], img["map_head"]
-    (wq, bq), (wk, bk), (wv, bv) = _fat_qkv_weights(
-        blocks["attn"], cfg.num_heads, cfg.head_dim
-    )
     fc1, fc2 = blocks["mlp"]["fc1"], blocks["mlp"]["fc2"]
     w1, b1, w2 = pad_hidden(fc1["w"], fc1["b"], fc2["w"])
     prepared_blocks = {
         "ln1": blocks["ln1"],
-        "qkv": {
-            "w": torch.cat([wq, wk, wv], dim=-1).contiguous(),
-            "b": torch.cat([bq, bk, bv], dim=-1).contiguous(),
-        },
+        "qkv": _fat_qkv(blocks["attn"], cfg.head_dim),
         "o": blocks["attn"]["o"],
         "ln2": blocks["ln2"],
         "fc1": {"w": w1.contiguous(), "b": b1.contiguous()},
@@ -292,14 +335,49 @@ def prepare_params(params: Params, cfg: SigLIPConfig) -> Params:
         "ln": mh["ln"],
         "mlp": mh["mlp"],
     }
-    prepared = {
+    return {
         "patch_embed": img["patch_embed"],
         "pos_emb": img["pos_emb"],
         "blocks": prepared_blocks,
         "ln_final": img["ln_final"],
         "map_head": map_head,
     }
-    return {**params, "img": prepared}
+
+
+def _text_layout(txt: Params, name: str, head_dim: int) -> list:
+    """The packed QKV weights of a text route, a dict of stacked (depth,
+    ...) tensors a shard: ``"qkv"``, q|k|v (D, 3D) for ``_encoder_text``;
+    ``"fat"``, the image tower's block layout (:func:`prepare_params`)
+    with the fat q|k|v for ``_encoder_fat``, whose other leaves are the
+    tree's own. Built on the route's first use and kept in the prepared
+    tree's ``layouts``, so each is built once."""
+    if "layouts" not in txt:
+        raise ValueError("the text tower's fused and fat routes need prepare_params(params, cfg) first")
+    if name not in txt["layouts"]:
+        txt["layouts"][name] = [
+            _packed_qkv(blk) if name == "qkv" else _fat_text_blocks(blk, head_dim)
+            for blk in _shards(txt["blocks"])
+        ]
+    return txt["layouts"][name]
+
+
+def _packed_qkv(blocks: Params) -> Params:
+    attn = blocks["attn"]
+    return {
+        "w": torch.cat([attn[n]["w"] for n in "qkv"], dim=-1).contiguous(),
+        "b": torch.cat([attn[n]["b"] for n in "qkv"], dim=-1).contiguous(),
+    }
+
+
+def _fat_text_blocks(blocks: Params, head_dim: int) -> Params:
+    return {
+        "ln1": blocks["ln1"],
+        "qkv": _fat_qkv(blocks["attn"], head_dim),
+        "o": blocks["attn"]["o"],
+        "ln2": blocks["ln2"],
+        "fc1": blocks["mlp"]["fc1"],
+        "fc2": blocks["mlp"]["fc2"],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -362,15 +440,49 @@ def _attn(
     return _dense(o, p["o"]) if par is None else par.row_dense(o, p["o"])
 
 
+def _device(tree) -> torch.device:
+    """The device of a tree's first leaf (a shard lies on one device)."""
+    while not isinstance(tree, torch.Tensor):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree.device
+
+
+def _on(device: torch.device):
+    """The device's context for a kernel launch (a launch goes to the
+    current device); nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _row_parallel(acc, shards: list, term, inp: torch.Tensor):
+    """``acc`` plus every shard's row-parallel term, chained in shard
+    order on each shard's device: ``term(shard, inp, acc)`` returns acc
+    plus the shard's term (or the term alone where acc is None), its
+    arguments moved to the shard's device. Returns on ``inp``'s device;
+    with one shard on that device, exactly ``term(shard, inp, acc)``."""
+    for shard in shards:
+        dev = _device(shard)
+        with _on(dev):
+            acc = term(shard, inp.to(dev), None if acc is None else acc.to(dev))
+    return acc.to(inp.device)
+
+
+def _plus(acc, y):
+    return y if acc is None else acc + y
+
+
 def _encoder(
-    x: torch.Tensor, blocks: Params, num_heads: int, attention=mha, par=None
+    x: torch.Tensor, blocks, num_heads: int, attention=mha, par=None
 ) -> torch.Tensor:
     """Pre-LN transformer encoder over stacked block params; bf16
-    residual adds, as the reference's scan step."""
-    for blk in _layers(blocks):
-        x = x + _attn(_layer_norm(x, blk["ln1"]), blk["attn"], num_heads,
-                      attention=attention, par=par)
-        x = x + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"], par)
+    residual adds, as the reference's scan step. ``blocks``: one tree, or
+    a list of model-parallel shards (each a column's heads and hidden
+    slice)."""
+    for layer in zip(*(_layers(s) for s in _shards(blocks))):
+        h = _layer_norm(x, layer[0]["ln1"])
+        x = _row_parallel(x, layer, lambda blk, h, acc: acc + _attn(
+            h, blk["attn"], num_heads, attention=attention, par=par), h)
+        h = _layer_norm(x, layer[0]["ln2"])
+        x = _row_parallel(x, layer, lambda blk, h, acc: acc + _mlp(h, blk["mlp"], par), h)
     return x
 
 
@@ -384,22 +496,27 @@ def _layers(tree) -> list:
     return list(torch.unbind(tree))
 
 
-def _map_head(x: torch.Tensor, p: Params, num_heads: int, attention=mha) -> torch.Tensor:
+def _map_head(x: torch.Tensor, p, num_heads: int, attention=mha) -> torch.Tensor:
     """MAP (multihead attention pooling) head over every row of x: the
     probe attends through ``_attn``, whose single query takes the plain
-    attention route."""
+    attention route. ``p``: one tree or a list of model-parallel shards."""
     b, _, d = x.shape
-    probe = p["probe"][None].expand(b, 1, d).to(x.dtype)
-    y = _attn(probe, p, num_heads, kv=x, attention=attention)
-    y = y + _mlp(_layer_norm(y, p["ln"]), p["mlp"])
+    shards = _shards(p)
+    probe = shards[0]["probe"][None].expand(b, 1, d).to(x.dtype)
+    y = _row_parallel(None, shards, lambda ps, xs, acc: _plus(acc, _attn(
+        probe.to(xs.device), ps, num_heads, kv=xs, attention=attention)), x)
+    y = _row_parallel(y, shards, lambda ps, h, acc: acc + _mlp(h, ps["mlp"]),
+                      _layer_norm(y, shards[0]["ln"]))
     return y[:, 0]
 
 
 def _encoder_fat(
-    x: torch.Tensor, blocks: Params, num_heads: int, n_valid: int
+    x: torch.Tensor, blocks, num_heads: int, n_valid: int
 ) -> torch.Tensor:
     """Padded-sequence encoder over (B, SP, D), rows >= n_valid padding;
-    ``blocks`` in the layout of :func:`prepare_params`.
+    ``blocks`` in the layout of :func:`prepare_params` (or a list of
+    model-parallel shards in it, each its own heads' fat QKV, its rows of
+    o and its hidden slice).
 
     The key mask rides the k constant column, written by ln_matmul's
     epilogue into every pad row; pad rows of the residual stream are
@@ -408,46 +525,122 @@ def _encoder_fat(
     d = x.shape[-1]
     dh = d // num_heads
     c = fat_width(dh)
-    ln1, qkv, o, ln2, fc1, fc2 = (
-        blocks[k] for k in ("ln1", "qkv", "o", "ln2", "fc1", "fc2")
-    )
-    for i in range(ln1["g"].shape[0]):
+    shards = _shards(blocks)
+
+    def attend(p, x, acc, i):
+        heads = p["qkv"]["w"].shape[-1] // (3 * c)
         qkvf = ln_matmul(
-            x, ln1["g"][i], ln1["b"][i], qkv["w"][i], qkv["b"][i],
-            k_mask=(n_valid, num_heads, c, dh),
+            x, p["ln1"]["g"][i], p["ln1"]["b"][i], p["qkv"]["w"][i], p["qkv"]["b"][i],
+            k_mask=(n_valid, heads, c, dh),
         )
-        attn = fat_vit_mha_packed(qkvf, num_heads, dh)
+        attn = fat_vit_mha_packed(qkvf, heads, dh)
         del qkvf
-        x = matmul_residual(attn, o["w"][i], o["b"][i], x)
-        x = ln_mlp_residual(
-            x, ln2["g"][i], ln2["b"][i],
-            fc1["w"][i], fc1["b"][i], fc2["w"][i], fc2["b"][i],
+        return matmul_residual(attn, p["o"]["w"][i], p["o"]["b"][i], acc)
+
+    def mlp(p, x, acc, i):
+        return ln_mlp_residual(
+            x, p["ln2"]["g"][i], p["ln2"]["b"][i],
+            p["fc1"]["w"][i], p["fc1"]["b"][i], p["fc2"]["w"][i], p["fc2"]["b"][i], res=acc,
         )
+
+    for i in range(shards[0]["ln1"]["g"].shape[0]):
+        x = _row_parallel(x, shards, lambda p, x, acc: attend(p, x, acc, i), x)
+        x = _row_parallel(x, shards, lambda p, x, acc: mlp(p, x, acc, i), x)
     return x
 
 
 def _map_head_fat(
-    x: torch.Tensor, lnf: Params, p: Params, num_heads: int, n_valid: int
+    x: torch.Tensor, lnf: Params, p, num_heads: int, n_valid: int
 ) -> torch.Tensor:
     """Final LN + MAP pooling head; the LN and the packed k|v projection
-    run as one ln_matmul, the probe attention over n_valid keys is plain
-    torch."""
+    run as one ln_matmul (one a model-parallel shard, over its heads), the
+    probe attention over n_valid keys is plain torch."""
     b, sp, d = x.shape
     dh = d // num_heads
-    kv = ln_matmul(x, lnf["g"], lnf["b"], p["kv"]["w"], p["kv"]["b"])  # (B, SP, 2D)
-    q = _dense(p["probe"].to(x.dtype), p["q"]).reshape(num_heads, dh)
-    k = kv[:, :, :d].reshape(b, sp, num_heads, dh)
-    v = kv[:, :, d:].reshape(b, sp, num_heads, dh)
-    scores = torch.einsum("hd,bkhd->bhk", q.float(), k.float()) * (1.0 / dh**0.5)
-    mask = torch.arange(sp, device=x.device) < n_valid
-    scores = scores.masked_fill(~mask[None, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    o = torch.einsum(
-        "bhk,bkhd->bhd", probs.to(v.dtype).float(), v.float()
-    ).to(x.dtype)
-    y = _dense(o.reshape(b, 1, d), p["o"])
-    y = y + _mlp(_layer_norm(y, p["ln"]), p["mlp"])
+    shards = _shards(p)
+
+    def attend(ps, x, acc):
+        hd = ps["q"]["w"].shape[1]  # this shard's heads x dh
+        kv = ln_matmul(x, lnf["g"].to(x.device), lnf["b"].to(x.device),
+                       ps["kv"]["w"], ps["kv"]["b"])  # (B, SP, 2 hd)
+        q = _dense(ps["probe"].to(x.dtype), ps["q"]).reshape(hd // dh, dh)
+        k = kv[:, :, :hd].reshape(b, sp, hd // dh, dh)
+        v = kv[:, :, hd:].reshape(b, sp, hd // dh, dh)
+        scores = torch.einsum("hd,bkhd->bhk", q.float(), k.float()) * (1.0 / dh**0.5)
+        mask = torch.arange(sp, device=x.device) < n_valid
+        scores = scores.masked_fill(~mask[None, None, :], float("-inf"))
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum(
+            "bhk,bkhd->bhd", probs.to(v.dtype).float(), v.float()
+        ).to(x.dtype)
+        return _plus(acc, _dense(o.reshape(b, 1, hd), ps["o"]))
+
+    y = _row_parallel(None, shards, attend, x)
+    y = _row_parallel(y, shards, lambda ps, h, acc: acc + _mlp(h, ps["mlp"]),
+                      _layer_norm(y, shards[0]["ln"]))
     return y[:, 0]
+
+
+def _encoder_text(
+    x: torch.Tensor,
+    blocks,
+    num_heads: int,
+    qkv=None,
+    *,
+    fused_qkv: bool = False,
+    fused_o: bool = False,
+    fused_mlp: bool = False,
+) -> torch.Tensor:
+    """The text tower's short-sequence encoder (JAX ``_encoder_text``),
+    over (B, S, D) and the text tower's blocks (or a list of
+    model-parallel shards of them).
+
+    LayerNorm, the projections and the MLP are per row, so each runs on
+    the (B*S, D) rows as they lie. QKV is one packed q|k|v projection
+    (``qkv``: its stacked weights a shard, :func:`_text_layout`; built
+    here from the blocks when not given); the attention always runs the
+    fused attention kernel (``fused_mha``), reading q, k and v in place
+    from the packed (B, S, 3, H, Dh) view. Each other sub-block takes its
+    kernel when its flag is set (the JAX package's ``MSE_TEXT_QKV``,
+    ``MSE_TEXT_O``, ``MSE_TEXT_MLP`` = ``fused``): ``ln_matmul`` for LN1 +
+    QKV, ``matmul_residual`` for the o-projection + residual,
+    ``ln_mlp_residual`` for LN2 + MLP + residual (its hidden width a
+    multiple of 128: :func:`prepare_params`); else the plain torch layers,
+    as the JAX package's XLA ones. The same math either way (fp32 LN
+    statistics and accumulation). The JAX function's tiling knobs
+    (``MSE_TEXT_RQ``, ``MSE_TEXT_NQ``, ``MSE_TEXT_ATTN_HPP``,
+    ``MSE_MLP_MH``, and ``MSE_SCAN_UNROLL`` of its fat encoder) change a
+    TPU kernel's blocking, never its math: the port reads none of them.
+    """
+    b, s, d = x.shape
+    dh = d // num_heads
+    shards = _shards(blocks)
+    qkvs = [_packed_qkv(sh) for sh in shards] if qkv is None else _shards(qkv)
+
+    def attend(pair, x, acc):
+        blk, w = pair
+        if fused_qkv:
+            y = ln_matmul(x, blk["ln1"]["g"], blk["ln1"]["b"], w["w"], w["b"])
+        else:
+            y = _dense(_layer_norm(x, blk["ln1"]), w)
+        heads = y.shape[-1] // (3 * dh)
+        y = y.reshape(b, s, 3, heads, dh)
+        o = fused_mha(y[:, :, 0], y[:, :, 1], y[:, :, 2]).reshape(b, s, heads * dh)
+        po = blk["attn"]["o"]
+        return matmul_residual(o, po["w"], po["b"], acc) if fused_o else acc + _dense(o, po)
+
+    def mlp(pair, x, acc):
+        blk = pair[0]
+        if fused_mlp:
+            fc1, fc2 = blk["mlp"]["fc1"], blk["mlp"]["fc2"]
+            return ln_mlp_residual(x, blk["ln2"]["g"], blk["ln2"]["b"], fc1["w"], fc1["b"],
+                                   fc2["w"], fc2["b"], res=acc)
+        return acc + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"])
+
+    for layer in zip(*(zip(_layers(sh), _layers(w)) for sh, w in zip(shards, qkvs))):
+        x = _row_parallel(x, layer, attend, x)
+        x = _row_parallel(x, layer, mlp, x)
+    return x
 
 
 def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
@@ -569,17 +762,21 @@ def _embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _embed_text(
     params: Params, tokens: torch.Tensor, cfg: SigLIPConfig, attention=mha, par=None,
-    normalize: bool = True,
+    normalize: bool = True, encoder=None,
 ) -> torch.Tensor:
     """The text tower as a graph: token ids (B, text_len) -> fp32
     (B, d_emb). big_vision text_transformer semantics, as the reference:
-    token and position embeddings, the pre-LN encoder, final LN,
-    last-token pool (the sticky-EOS tokenisation puts the sentence at
-    position -1), then the output head."""
+    token and position embeddings, the pre-LN encoder (``encoder(x)``
+    where given, else :func:`_encoder`), final LN, last-token pool (the
+    sticky-EOS tokenisation puts the sentence at position -1), then the
+    output head."""
     p = params["txt"]
     x = _embed_tokens(p["token_emb"], tokens)
     x = x + p["pos_emb"][None].to(x.dtype)
-    x = _encoder(x, p["blocks"], cfg.text_num_heads, attention, par)
+    if encoder is None:
+        x = _encoder(x, p["blocks"], cfg.text_num_heads, attention, par)
+    else:
+        x = encoder(x)
     x = _layer_norm(x, p["ln_final"])
     return _normalized(_dense(x[:, -1], p["head"]), normalize)
 
@@ -593,9 +790,41 @@ def encode_text(
     normalize: bool = True,
 ) -> torch.Tensor:
     """Token ids (B, text_len) -> fp32 embeddings (B, d_emb), L2-normalised
-    by default (:func:`_embed_text`, self-attention through ``mha``). The
-    text tower's leaves are used as they are."""
-    return _embed_text(params, tokens, cfg, normalize=normalize)
+    by default, by the JAX package's route choice (its ``encode_text``):
+
+    - the fat-layout encoder (``_encoder_fat`` with every key valid, the
+      image tower's kernels 1, 7, 2 and 3) when ``fat_layout_ok`` holds
+      and ``cfg.attn_impl`` is "fat_interpret" (or "auto" on the card at a
+      sequence of 256 or more, which no config has);
+    - else :func:`_encoder_text` when ``MSE_TEXT_FUSED=1``, the weights
+      lie on the card (the JAX package's "the backend is a TPU") and the
+      head width is a multiple of 8, its sub-blocks routed by
+      ``MSE_TEXT_QKV``, ``MSE_TEXT_O`` and ``MSE_TEXT_MLP`` (``fused`` or
+      ``xla``, the default); off by default, as in the JAX package;
+    - else the plain encoder (self-attention through ``mha``).
+
+    The variables are read at each call; the JAX package reads them when
+    it traces. The two routes' packed QKV weights are built on a route's
+    first use (:func:`_text_layout`), so ``params`` must have been
+    through :func:`prepare_params` for them.
+    """
+    p = params["txt"]
+    th = cfg.text_num_heads
+    dh = cfg.text_width // th
+    sp = cfg.text_len
+    on_card = p["token_emb"].device.type == "cuda"
+    encoder = None
+    if fat_layout_ok(th, dh, sp) and (
+        cfg.attn_impl == "fat_interpret" or (cfg.attn_impl == "auto" and on_card and sp >= 256)
+    ):
+        blocks = _text_layout(p, "fat", dh)
+        encoder = lambda x: _encoder_fat(x, blocks, th, n_valid=sp)  # noqa: E731
+    elif os.environ.get("MSE_TEXT_FUSED", "0") == "1" and on_card and dh % 8 == 0:
+        qkv = _text_layout(p, "qkv", dh)
+        flags = {f"fused_{k.lower()}": os.environ.get(f"MSE_TEXT_{k}", "xla") == "fused"
+                 for k in ("QKV", "O", "MLP")}
+        encoder = lambda x: _encoder_text(x, p["blocks"], th, qkv, **flags)  # noqa: E731
+    return _embed_text(params, tokens, cfg, normalize=normalize, encoder=encoder)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,10 @@ on the TPU, ``csrc/mha.cu`` here, :func:`fused_mha`); anything else
 (the MAP head's single probe query, causal attention) goes to
 :func:`mha_xla`, the reference's own route for those shapes. The fused
 kernel's plain version (:func:`fused_mha_plain`) runs for CPU tensors.
+:func:`flash_mha`, the JAX package's blocked attention, is plain torch
+there too (a ``lax.scan``, no Pallas kernel) and no served path calls it.
 
-**Fat-layout attention** for the image tower. q/k/v arrive in the "fat"
+**Fat-layout attention** for the image tower (and the text tower's fat route). q/k/v arrive in the "fat"
 head-major layout (B, SP, H*C), C = ``fat_width(head_dim)``: per head the
 head_dim features, then one constant column, then zero padding.
 
@@ -20,6 +22,9 @@ head_dim features, then one constant column, then zero padding.
 - k's constant column is 0 on valid rows and -1e30 on pad rows, so Q.K^T
   gives masked scores with no separate mask;
 - v's constant column is 1, so column head_dim of P.V is the softmax sum.
+
+:func:`fat_layout_ok` is the JAX package's test of whether a geometry takes
+this layout, so both packages route the same inputs alike.
 
 The plain versions compute exactly that with full score matrices in
 fp32; the wrappers launch ``csrc/fat_attention.cu`` on CUDA tensors, a
@@ -45,9 +50,11 @@ from .fused import _check, _refuse_grad, _on_cpu
 __all__ = [
     "mha",
     "mha_xla",
+    "flash_mha",
     "fused_mha",
     "fused_mha_plain",
     "fat_width",
+    "fat_layout_ok",
     "kernel_width",
     "fat_pad",
     "fat_vit_mha",
@@ -115,6 +122,40 @@ def mha_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool =
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def flash_mha(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, block_q: int = 256, block_k: int = 256
+) -> torch.Tensor:
+    """Blocked (flash) attention: a loop over key blocks with an online
+    softmax, fp32 throughout, as the JAX ``flash_mha`` (a ``lax.scan``
+    there, plain XLA with no Pallas kernel). Same signature and semantics
+    as :func:`mha` (non-causal); the last key block is zero-padded and its
+    pad keys masked. ``block_q`` is kept for the JAX signature: as there,
+    the queries are not blocked. No served path calls it, in either
+    package."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    qf = q.transpose(1, 2).float() * (1.0 / dh**0.5)  # (B, H, Sq, Dh)
+    kf, vf = (t.transpose(1, 2).float() for t in (k, v))
+    pad = (-sk) % block_k
+    if pad:
+        kf, vf = (F.pad(t, (0, 0, 0, pad)) for t in (kf, vf))
+    valid = torch.arange(sk + pad, device=q.device) < sk
+    m = torch.full((b, h, sq), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    for start in range(0, sk + pad, block_k):
+        kb, vb = kf[:, :, start : start + block_k], vf[:, :, start : start + block_k]
+        s = (qf @ kb.transpose(-1, -2)).masked_fill(
+            ~valid[start : start + block_k], float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ vb
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2).to(q.dtype)
 
 
 def fused_mha_plain(
@@ -209,6 +250,15 @@ def fused_mha(
 def fat_width(head_dim: int) -> int:
     """Per-head fat width: head_dim + const column, padded to 8."""
     return ((head_dim + 1 + 7) // 8) * 8
+
+
+def fat_layout_ok(n_heads: int, head_dim: int, sp: int) -> bool:
+    """Whether (n_heads, head_dim, padded sequence) takes the fat layout:
+    the JAX package's predicate as it is (its Pallas block widths are
+    multiples of 128 lanes, its row blocks of 16), so both packages route
+    the same inputs the same way. The kernel's own width check
+    (``_check_width``) is separate and still raises."""
+    return (n_heads * fat_width(head_dim)) % 128 == 0 and sp % 16 == 0
 
 
 def fat_vit_mha_plain(qf, kf, vf, n_heads: int, head_dim: int) -> torch.Tensor:

@@ -80,10 +80,11 @@ def matmul_residual_plain(x, w, bias, res):
     return (x.float() @ w.float() + bias.float() + res.float()).to(x.dtype)
 
 
-def ln_mlp_residual_plain(x, gamma, beta, w1, b1, w2, b2):
+def ln_mlp_residual_plain(x, gamma, beta, w1, b1, w2, b2, res=None):
     h = _ln_plain(x, gamma, beta).float() @ w1.float() + b1.float()
     h = F.gelu(h, approximate="tanh").to(x.dtype)
-    return (x.float() + h.float() @ w2.float() + b2.float()).to(x.dtype)
+    res = x if res is None else res
+    return (res.float() + h.float() @ w2.float() + b2.float()).to(x.dtype)
 
 
 def pad_hidden(w1, b1, w2, multiple: int = HIDDEN_TILE):
@@ -244,19 +245,23 @@ def ln_mlp_residual(
     b1: torch.Tensor,
     w2: torch.Tensor,
     b2: torch.Tensor,
+    res: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """x + gelu_tanh(LayerNorm(x) @ w1 + b1) @ w2 + b2.
+    """res + gelu_tanh(LayerNorm(x) @ w1 + b1) @ w2 + b2, res = x by default.
 
     On the card this is two launches of the GEMM kernel: LN + fc1 + gelu
     into a bf16 (rows, M) scratch (the reference rounds the gelu output
-    to bf16 before fc2 too, fused.py:206), then fc2 + b2 with x as the
+    to bf16 before fc2 too, fused.py:206), then fc2 + b2 with the
     residual. The scratch's round trip through device memory is what this
     version pays over the reference's on-chip intermediate. The hidden
     width M must be a multiple of 128 (``pad_hidden`` at load time).
+    ``res`` apart from x is a tensor-parallel shard's partial sum: the
+    shard's hidden slice adds onto the sum of the shards before it.
     """
-    _refuse_grad("ln_mlp_residual", x, gamma, beta, w1, b1, w2, b2)
-    if _on_cpu(x, gamma, beta, w1, b1, w2, b2):
-        return ln_mlp_residual_plain(x, gamma, beta, w1, b1, w2, b2)
+    res = x if res is None else res
+    _refuse_grad("ln_mlp_residual", x, gamma, beta, w1, b1, w2, b2, res)
+    if _on_cpu(x, gamma, beta, w1, b1, w2, b2, res):
+        return ln_mlp_residual_plain(x, gamma, beta, w1, b1, w2, b2, res)
     if x.dim() != 3 or w1.dim() != 2:
         raise ValueError("x: (B, SP, D), w1: (D, M)")
     b, sp, d = x.shape
@@ -272,9 +277,10 @@ def ln_mlp_residual(
     _check("b1", b1, (m,))
     _check("w2", w2, (m, d))
     _check("b2", b2, (d,))
+    _check("res", res, (b, sp, d))
     h = torch.empty((b, sp, m), dtype=x.dtype, device=x.device)
     _ln_matmul_launch(x, gamma, beta, w1, b1, "gelu", None, h)
     out = torch.empty_like(x)
-    _matmul_residual_launch(h, w2, b2, x, out)
+    _matmul_residual_launch(h, w2, b2, res, out)
     launches["ln_mlp_residual"] += 1
     return out

@@ -29,7 +29,7 @@ import collections
 import hashlib
 import os
 from dataclasses import dataclass, field
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -657,11 +657,14 @@ def pack_index(
     descriptor_cdfs: Optional[List[np.ndarray]] = None,
     batch_size: int = 8192,
     device="cuda",
+    pause_point: Optional[Callable[[], None]] = None,
 ) -> IndexHeader:
     """Write index.bin / index.pq-codes.bin / index.descriptor-codes.bin /
     index.msgpack (dump_processor.rs:463-569). The OPQ codes are encoded
     on ``device``; the records are packed natively, one GIL-free C call a
-    batch, and a manifest row whose dimensions are not a pair raises."""
+    batch, and a manifest row whose dimensions are not a pair raises.
+    ``pause_point`` is called before every batch: the chip lease's safe
+    point (``utils/tpu_lease.py``), as in the JAX package."""
     os.makedirs(out_dir, exist_ok=True)
     n = len(vectors)
     dead = 0
@@ -684,6 +687,8 @@ def pack_index(
         next_batch = read_batch(0) if n else None
         pending = quantizer.quantize_async(next_batch, device) if n else None
         for start in range(0, n, batch_size):
+            if pause_point is not None:
+                pause_point()
             end = min(n, start + batch_size)
             batch, codes_dev = next_batch, pending
             next_batch = read_batch(end) if end < n else None

@@ -10,10 +10,20 @@ L2-normalised fp32 numpy. Texts are tokenised on the host first
 
 The engine runs on ``cuda`` unless the caller asks for ``cpu``; asking for
 CUDA on a host without it raises, it never falls back to the CPU. With
-``mesh``, a list of devices, it is data-parallel as the JAX engine is
-over a mesh's ``data`` axis: each device holds the weights, and a bucket
-that divides evenly by the device count runs split across them (JAX
-``engine.py:115-121``); one that does not runs on the first.
+``mesh`` it is one process over a grid of devices, as the JAX engine is
+one program over a (data x model) mesh. A list of devices is a column:
+each device is a data replica that holds the weights, and a bucket that
+divides evenly by the replica count runs split across them (JAX
+``engine.py:115-121``); one that does not runs on the first. A list of
+rows (``[["cuda:0", "cuda:1"], ...]``) has a replica a row; with
+``model_parallel=True`` each row's devices are its model shards (the
+JAX ``model_parallel``, which applies the Megatron layout of
+``parallel/mesh.py``): each holds its column's slice of the blocks and of
+the MAP head (``parallel/mesh.model_shards``) in the kernels' layouts, and
+runs every kernel of a layer on its own heads and hidden slice
+(``models/siglip.py``). Without it a row runs on its first device, as the
+JAX engine's model axis then holds whole copies. One card serves a row of
+two shards as ``[["cuda:0", "cuda:0"]]``.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import numpy as np
 import torch
 
 from ..models import siglip
+from ..parallel.mesh import model_shards
 from .tokenizer import load_tokenizer
 
 __all__ = ["EmbeddingEngine", "pow2_buckets", "resolve_device"]
@@ -56,7 +67,20 @@ def resolve_device(device: str | torch.device) -> torch.device:
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _join(trees: list) -> dict:
+    """One row's tree from its model shards' prepared trees: the blocks
+    and the MAP head as lists of the shards', every other leaf (and the
+    text routes' ``layouts``) the first shard's."""
+    return {
+        tower: {**sub, **{k: [t[tower][k] for t in trees]
+                          for k in ("blocks", "map_head") if k in sub}}
+        for tower, sub in trees[0].items()
+    }
 
 
 class EmbeddingEngine:
@@ -72,8 +96,9 @@ class EmbeddingEngine:
       device: "cuda" (default) or "cpu".
       tokenizer_path: optional HF ``tokenizer.json`` (or its directory);
         without one, the hash tokenizer (``serving/tokenizer.py``).
-      mesh: optional list of devices for data parallelism (replaces
-        ``device``).
+      mesh: optional list of devices for data parallelism, or a list of
+        rows of devices (replaces ``device``).
+      model_parallel: each row's devices hold its model shards.
     """
 
     def __init__(
@@ -83,22 +108,32 @@ class EmbeddingEngine:
         max_batch: int = 128,
         device: str | torch.device = "cuda",
         tokenizer_path: Optional[str] = None,
-        mesh: Optional[Sequence[str | torch.device]] = None,
+        mesh: Optional[Sequence] = None,
+        model_parallel: bool = False,
     ):
         self.cfg = cfg
         self.max_batch = max_batch
-        self.devices = [resolve_device(d) for d in (mesh if mesh else [device])]
+        rows = [[device]] if not mesh else [
+            list(r) if isinstance(r, (list, tuple)) else [r] for r in mesh
+        ]
+        if len({len(r) for r in rows}) != 1:
+            raise ValueError(f"mesh rows differ in length: {mesh}")
+        self.grid = [[resolve_device(d) for d in (r if model_parallel else r[:1])] for r in rows]
+        self.devices = [r[0] for r in self.grid]  # where each replica's batch lies
         self.device = self.devices[0]
-        if any(d.type == "cuda" for d in self.devices):
+        if any(d.type == "cuda" for r in self.grid for d in r):
             # the dense layers' bf16 GEMMs accumulate in fp32, split-K
             # partial sums included, as the reference's do (process-wide)
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        towers = {k: params[k] for k in ("img", "txt")}
+        n = len(self.grid[0])
+        columns = model_shards(towers, n) if n > 1 else [towers]
         replicas = {}
-        for d in self.devices:
-            if d not in replicas:
-                towers = {k: _to(params[k], d) for k in ("img", "txt")}
-                replicas[d] = siglip.prepare_params(towers, cfg)
-        self._replicas = [replicas[d] for d in self.devices]
+        for r in self.grid:
+            if tuple(r) not in replicas:
+                trees = [siglip.prepare_params(_to(c, d), cfg) for c, d in zip(columns, r)]
+                replicas[tuple(r)] = trees[0] if n == 1 else _join(trees)
+        self._replicas = [replicas[tuple(r)] for r in self.grid]
         self.params = self._replicas[0]
         self.tokenizer = load_tokenizer(tokenizer_path, cfg.vocab_size, cfg.text_len)
 

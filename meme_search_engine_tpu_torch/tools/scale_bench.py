@@ -14,8 +14,10 @@ CLI, stages, artifacts and report keys, from the same seeds the same
 corpus. k-means, the shard builds, OPQ training, the pack's encode and
 the eval oracle run on ``--device`` (the card unless the caller asks for
 the CPU); the split, the merge, the record packing and the beam searches
-run on the host, as in the JAX package. It has no chip lease and no
-compile cache. The dump is written as zstd frames of stored blocks (the
+run on the host, as in the JAX package. It holds the chip lease as the
+JAX tool does (``utils/tpu_lease.py``: advertised at the start, a safe
+point before each shard build, collect step, OPQ training, pack batch and
+eval slab, cleared at the end) and has no compile cache. The dump is written as zstd frames of stored blocks (the
 JAX tool compresses at level 8): the synthetic fp16 corpus barely
 compresses, and any zstd reader reads either.
 
@@ -34,6 +36,7 @@ import time
 
 import numpy as np
 
+from ..utils import tpu_lease
 from ..utils.mallctl import malloc_trim, rss_kb
 
 D_EMB = 1152
@@ -255,6 +258,10 @@ def main(argv=None):
 
     wd = args.workdir
     os.makedirs(wd, exist_ok=True)
+    # long-running chip holder: advertise for cooperative handoff and
+    # check for PAUSE requests at every safe point below
+    tpu_lease.advertise(wd)
+    pause_point = lambda: tpu_lease.pause_point(log)  # noqa: E731
     report = {"n": args.n, "clusters": args.clusters, "stages_s": {}}
     report_path = os.path.join(wd, "report.json")
     if os.path.exists(report_path):
@@ -329,6 +336,7 @@ def main(argv=None):
             os.remove(dump_path)
     if args.stage == "prep":
         log("prep stage complete (kmeans + split); exiting")
+        tpu_lease.clear()
         return
     manifest = list(np.load(manifest_path, allow_pickle=True))
     n_total = len(manifest)
@@ -352,6 +360,7 @@ def main(argv=None):
         report["stages_s"]["resplit"] = round(time.time() - t0, 1)
         checkpoint_report()
         log(f"resplit: {summary} in {report['stages_s']['resplit']}s")
+        tpu_lease.clear()
         return
 
     # --- OOD query vectors (generate_index_shard.rs:71-94) -----------------
@@ -390,6 +399,7 @@ def main(argv=None):
         if not os.path.exists(in_path) or args.partial_tail:
             continue
         if not os.path.exists(out_path):
+            pause_point()
             if (
                 args.max_build_records
                 and records_this_run >= args.max_build_records
@@ -484,6 +494,7 @@ def main(argv=None):
             log("collecting vectors for OPQ/pack")
             vectors = np.zeros((n_total, D_EMB), np.float16)
             for s in range(args.clusters):
+                pause_point()
                 in_path = os.path.join(shard_dir, f"shard_{s}.msgpack")
                 if not os.path.exists(in_path):
                     continue
@@ -512,6 +523,7 @@ def main(argv=None):
         # a restarted tail (crash mid-pack, partial-tail -> full-tail
         # rerun) reloads instead of re-paying ~530 s at 1e7
         opq_ckpt = os.path.join(wd, "opq.msgpack")
+        pause_point()
         if os.path.exists(opq_ckpt):
             with open(opq_ckpt, "rb") as f:
                 pq = ProductQuantizer.from_msgpack(f.read())
@@ -527,6 +539,7 @@ def main(argv=None):
                 n_centroids=args.pq_centroids,
                 outer_iters=2,
                 adam_iters=120,
+                pause_point=pause_point,
                 device=device,
             )
             with open(opq_ckpt + ".tmp", "wb") as f:
@@ -556,6 +569,7 @@ def main(argv=None):
             scores=scores,
             descriptor_cdfs=cdfs,
             device=device,
+            pause_point=pause_point,
         )
         report["stages_s"]["pack"] = round(time.time() - t0, 1)
         checkpoint_report()
@@ -575,6 +589,7 @@ def main(argv=None):
     qs = _hier_points(fines, qc, qrng)
 
     # warm the page cache
+    pause_point()
     for q in qs[:8]:
         idx.search(q, 20, beamwidth=args.beamwidth,
                    search_list=args.search_list)
@@ -627,6 +642,7 @@ def main(argv=None):
             corpus_dev = torch.from_numpy(np.array(corpus)).to(device)  # upload once
             gt_i = []
             for start in range(0, len(eval_q), 64):
+                pause_point()
                 _s, i = mips_topk(
                     corpus_dev, torch.from_numpy(eval_q[start : start + 64]).to(device),
                     1000, tile=min(n_total, 262_144),
@@ -641,6 +657,7 @@ def main(argv=None):
 
             def slabs():
                 for s0 in range(0, n_total, slab):
+                    pause_point()
                     yield corpus[s0 : s0 + slab], s0
 
             _s, gt_i = streamed_mips_topk(
@@ -724,6 +741,7 @@ def main(argv=None):
         log(f"eval: {report['eval']}")
 
     checkpoint_report()
+    tpu_lease.clear()
     print(json.dumps(report))
 
 

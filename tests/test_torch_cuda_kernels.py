@@ -386,6 +386,100 @@ def _to_cuda(tree):
     return tree.cuda()
 
 
+# The text tower's routes: its GEMMs at S = 64 (QKV N = 3456 = 27 x 128,
+# no key mask; o; the MLP at the padded 4352, with a residual apart from x
+# as a model-parallel shard chains it) from 1 to 128 texts, the fat
+# attention at SP = 64 (half a 128-row tile a text, every key valid) over
+# 16 heads and a shard's 8, and kernel 1's key mask over a shard's heads
+@pytest.mark.parametrize("b", [1, 2, 3, 128])
+def test_gemms_at_the_text_shapes(gen, b):
+    d, s = 1152, 64
+    x, g, be = _rn(gen, b, s, d), _rn(gen, d, mean=1.0, std=0.1), _rn(gen, d, std=0.1)
+    wqkv, bqkv = _rn(gen, d, 3 * d, std=d**-0.5), _rn(gen, 3 * d, std=0.1)
+    _assert_close(fused.ln_matmul(x, g, be, wqkv, bqkv), fused.ln_matmul_plain(x, g, be, wqkv, bqkv), 0.05)
+    wo, bo = _rn(gen, d, d, std=d**-0.5), _rn(gen, d, std=0.1)
+    _assert_close(fused.matmul_residual(x, wo, bo, x), fused.matmul_residual_plain(x, wo, bo, x), 0.05)
+    w1, b1 = _rn(gen, d, 4304, std=d**-0.5), _rn(gen, 4304)
+    w2, b2 = _rn(gen, 4304, d, std=4304**-0.5), _rn(gen, d)
+    pw1, pb1, pw2 = (t.contiguous() for t in fused.pad_hidden(w1, b1, w2))
+    res = _rn(gen, b, s, d)
+    _assert_close(fused.ln_mlp_residual(x, g, be, pw1, pb1, pw2, b2, res=res),
+                  fused.ln_mlp_residual_plain(x, g, be, w1, b1, w2, b2, res=res), 0.05)
+
+
+@pytest.mark.parametrize("b", [1, 3, 128])
+@pytest.mark.parametrize("h", [16, 8])
+def test_fat_attention_kernel_at_the_text_shape(gen, b, h):
+    qkvf = _fat_qkvf(gen, b, 64, 64, h, 72)
+    _assert_close(attention.fat_vit_mha_packed(qkvf, h, 72),
+                  attention.fat_vit_mha_packed_plain(qkvf, h, 72), 2e-2)
+
+
+def test_ln_matmul_key_mask_over_a_shards_heads(gen):
+    b, sp, n_valid, h, c, d, k = 2, 736, 729, 8, 80, 72, 1152
+    x, g, be = _rn(gen, b, sp, k), _rn(gen, k, mean=1.0, std=0.1), _rn(gen, k)
+    w, bias = _rn(gen, k, 3 * h * c, std=k**-0.5), _rn(gen, 3 * h * c)
+    km = (n_valid, h, c, d)
+    _assert_close(fused.ln_matmul(x, g, be, w, bias, k_mask=km),
+                  fused.ln_matmul_plain(x, g, be, w, bias, k_mask=km), 0.05)
+
+
+def test_text_routes_and_model_parallel_on_the_card(monkeypatch):
+    """The tiny config on the card: the text tower through MSE_TEXT_FUSED=1
+    with every sub-block fused (kernels 1, 5, 2 and 3 once a layer) and
+    through attn_impl="fat_interpret" (1, 7, 2, 3), and the engine over
+    [["cuda", "cuda"]] with model_parallel (each kernel once a shard a
+    layer), each against the CPU plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    import numpy as np
+
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
+
+    cfg = siglip.tiny_test_config()
+    params = siglip.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (3, cfg.text_len), generator=torch.Generator().manual_seed(4))
+    want = siglip.encode_text(siglip.prepare_params(params, cfg), toks, cfg)
+    card = siglip.prepare_params(_to_cuda(params), cfg)
+    for k in ("FUSED", "QKV", "O", "MLP"):
+        monkeypatch.setenv(f"MSE_TEXT_{k}", "1" if k == "FUSED" else "fused")
+    fused.reset_launches()
+    attention.reset_launches()
+    got = siglip.encode_text(card, toks.cuda(), cfg).cpu()
+    assert ((got * want).sum(-1)).min() > 0.999
+    n = cfg.text_depth
+    assert fused.launches == {"ln_matmul": n, "matmul_residual": n, "ln_mlp_residual": n}
+    assert attention.launches["fused_mha"] == n
+    monkeypatch.setenv("MSE_TEXT_FUSED", "0")
+    fat = dataclasses.replace(siglip.tiny_fat_test_config("fat_interpret"), text_width=112,
+                              text_num_heads=16, text_len=16, d_emb=112)
+    fparams = siglip.init_params(fat, torch.Generator().manual_seed(5), "cpu")
+    ftoks = torch.randint(0, fat.vocab_size, (3, fat.text_len), generator=torch.Generator().manual_seed(6))
+    fwant = siglip.encode_text(siglip.prepare_params(fparams, fat), ftoks, fat)
+    fused.reset_launches()
+    attention.reset_launches()
+    fgot = siglip.encode_text(siglip.prepare_params(_to_cuda(fparams), fat), ftoks.cuda(), fat).cpu()
+    assert ((fgot * fwant).sum(-1)).min() > 0.999
+    assert fused.launches == {"ln_matmul": 2, "matmul_residual": 2, "ln_mlp_residual": 2}
+    assert attention.launches == {"fat_vit_mha": 2, "fused_mha": 0, "fat_vit_mha_packed_proj": 0}
+    single = EmbeddingEngine(fparams, fat, max_batch=4, device="cpu")
+    tp = EmbeddingEngine(fparams, fat, max_batch=4, mesh=[["cuda", "cuda"]], model_parallel=True)
+    imgs = np.random.default_rng(7).integers(0, 256, (4, 28, 28, 3), dtype=np.uint8)
+    toks4 = np.random.default_rng(8).integers(0, fat.vocab_size, (4, fat.text_len))
+    fused.reset_launches()
+    attention.reset_launches()
+    for a, b in ((tp.embed_image_arrays(imgs), single.embed_image_arrays(imgs)),
+                 (tp.embed_tokens(toks4), single.embed_tokens(toks4))):
+        assert np.isfinite(a).all() and ((a * b).sum(-1)).min() > 0.999
+    # one bucket of 4 a tower: 2 shards x 2 layers, both towers (the text's
+    # fat route), the MAP head's k|v once a shard
+    assert fused.launches == {"ln_matmul": 4 + 4 + 2, "matmul_residual": 8, "ln_mlp_residual": 8}
+    assert attention.launches["fat_vit_mha"] == 8
+
+
 @pytest.mark.parametrize("c", [16, 256])
 @pytest.mark.parametrize("m", [8, 16, 48, 32, 64, 96, 128])
 @pytest.mark.parametrize("b", [1, 2, 3, 64])

@@ -32,6 +32,15 @@ MINI = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def _isolate_port_lease(tmp_path, monkeypatch):
+    """The port's scale_bench advertises the chip lease: point its busy
+    file at a per-test path, as conftest.py does for the JAX package's."""
+    from meme_search_engine_tpu_torch.utils import tpu_lease
+
+    monkeypatch.setattr(tpu_lease, "BUSY_PATH", str(tmp_path / "tpu_busy.json"))
+
+
 def _read(path):
     with open(path, "rb") as f:
         return f.read()

@@ -10,10 +10,14 @@ package in this process.
   1e-5 (fp32), ``fc1.w`` held split over ``model``.
 - ``sharded_mips_topk`` on a data-4 mesh against JAX's: ids as sets a
   query, scores rtol 1e-4; the wrapper drops its pad sentinels.
-- A checkpoint round trip on 2 x 2 keeps each rank's slices; a 4 x 1
-  state refuses it.
+- A checkpoint round trip on 2 x 2 keeps each rank's slices; restored
+  onto 4 x 1 and 1 x 4 it is bit-equal to the global tree (params and
+  AdamW's moments); another logical shape or dtype is refused.
 - ``dryrun_multichip(4)``, and the engine's device list equal to one
-  device (tests/test_parallel.py's rtol 2e-2, atol 2e-3).
+  device (tests/test_parallel.py's rtol 2e-2, atol 2e-3); its model-
+  parallel grid ``[["cpu", "cpu"]]`` equal to one device and to JAX
+  ``encode_image`` under ``shard_params`` on a 4 x 2 mesh (rtol and atol
+  2e-2, tests/test_parallel.py:91-106).
 """
 
 import dataclasses
@@ -79,6 +83,8 @@ def _ranks4(rank, out_dir):
     for k, t in tmesh.tree_flat(params).items():
         out[f"grad:{k}"] = t.grad.numpy()
         out[f"param:{k}"] = t.detach().numpy()
+    for k, t in tmesh.tree_flat(opt_state.mu).items():
+        out[f"mu:{k}"] = t.numpy()
 
     ckpt = os.path.join(out_dir, "ckpt")
     save_train_state(ckpt, params, opt_state, step=50)
@@ -91,12 +97,17 @@ def _ranks4(rank, out_dir):
         torch.equal(a, b) for a, b in zip(tmesh.tree_leaves(fresh_state.nu), tmesh.tree_leaves(opt_state.nu))
     ))
 
+    # onto meshes of other shapes: 4 x 1 (each rank whole) and 1 x 4
     mesh4 = tmesh.make_mesh(4, 1, device="cpu")
-    try:
-        restore_train_state(ckpt, *make_train_state(0, tcfg, mesh4, LR, params=whole)[::2])
-        out["refused_other_mesh"] = np.asarray(False)
-    except ValueError:
-        out["refused_other_mesh"] = np.asarray(True)
+    mesh14 = tmesh.make_mesh(1, 4, device="cpu")
+    for name, m in (("4x1", mesh4), ("1x4", mesh14)):
+        other, _, other_state = make_train_state(0, tcfg, m, LR, params=whole)
+        other, other_state, _ = restore_train_state(ckpt, other, other_state)
+        for k, t in tmesh.tree_flat(other).items():
+            out[f"{name}:param:{k}"] = t.detach().numpy()
+        for k, t in tmesh.tree_flat(other_state.mu).items():
+            out[f"{name}:mu:{k}"] = t.numpy()
+        out[f"{name}:count"] = np.asarray([float(t) for t in tmesh.tree_leaves(other_state.count)])
 
     corpus = inputs["corpus"]
     rows = corpus.shape[0] // 4
@@ -196,10 +207,29 @@ def test_sharded_index_wrapper_drops_pad_sentinels(four_ranks, corpus_1k):
 
 
 def test_checkpoint_round_trip_keeps_each_rank_slice(four_ranks):
+    """On 2 x 2 each rank gets its slices back; restored onto 4 x 1 and
+    1 x 4 every rank holds its part of the global tree (the 2 x 2 ranks'
+    slices joined), bit for bit, params and moments alike."""
     for res in four_ranks["ranks"]:
         assert int(res["restored_step"]) == 50
         assert bool(res["restored_equal"])
-        assert bool(res["refused_other_mesh"])
+    specs = tmesh.tree_flat(tmesh.siglip_param_specs())
+    ranks = four_ranks["ranks"]
+
+    def whole(kind, key):  # ranks 0 and 1 are data row 0's two model columns
+        dim = tmesh.split_dim(specs[key])
+        parts = [ranks[m][f"{kind}:{key}"] for m in (0, 1)]
+        return parts[0] if dim is None else np.concatenate(parts, axis=dim)
+
+    for key in specs:
+        for kind in ("param", "mu"):
+            want = whole(kind, key)
+            for r, res in enumerate(ranks):
+                np.testing.assert_array_equal(res[f"4x1:{kind}:{key}"], want, err_msg=key)
+                np.testing.assert_array_equal(res[f"1x4:{kind}:{key}"],
+                                              _spec_slice(want, specs[key], r, 4), err_msg=key)
+    for r, res in enumerate(ranks):
+        assert (res["4x1:count"] == 1).all() and (res["1x4:count"] == 1).all()
 
 
 def test_dryrun_multichip_four_processes(capfd):
@@ -228,5 +258,77 @@ def test_engine_device_list_equals_one_device():
     assert used == [(0, 8), (1, 8), (0, 1)]  # the bucket of 16 split, the bucket of 1 not
     texts = ["a", "b c", "d e f"]
     np.testing.assert_allclose(multi.embed_texts(texts), single.embed_texts(texts), rtol=2e-2, atol=2e-3)
-    with pytest.raises(TypeError, match="model_parallel"):  # not ported (ROADMAP)
-        EmbeddingEngine(params, cfg, max_batch=16, device="cpu", model_parallel=True)
+    # model_parallel on a grid of one row: two shards of the weights
+    tp = EmbeddingEngine(params, cfg, max_batch=16, mesh=[["cpu", "cpu"]], model_parallel=True)
+    assert len(tp.params["img"]["blocks"]) == 2 and len(tp.params["txt"]["blocks"]) == 2
+    np.testing.assert_allclose(tp.embed_image_arrays(imgs), single.embed_image_arrays(imgs),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(tp.embed_texts(texts), single.embed_texts(texts), rtol=2e-2, atol=2e-2)
+
+
+def _fat_text_cfg(attn_impl):
+    """tiny_fat_test_config with a fat-capable text tower (16 heads of 7,
+    tests/test_siglip.py:116-119), both towers 112 wide into d_emb."""
+    return dataclasses.replace(ts.tiny_fat_test_config(attn_impl), text_width=112,
+                               text_num_heads=16, text_len=16, d_emb=112)
+
+
+@pytest.mark.parametrize("attn_impl", ["auto", "xla", "fat_interpret"])
+def test_engine_model_parallel_equals_one_device(attn_impl):
+    """Each shard of [["cpu", "cpu"]] holds half the heads, o rows, fc1
+    columns and fc2 rows of every block and of the MAP head (a row-
+    parallel bias on shard 0 only); every route of both towers gives the
+    single device's embeddings (tests/test_parallel.py's 2e-2)."""
+    cfg = _fat_text_cfg(attn_impl)
+    params = ts.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    single = EmbeddingEngine(params, cfg, max_batch=8, device="cpu")
+    tp = EmbeddingEngine(params, cfg, max_batch=8, mesh=[["cpu", "cpu"]], model_parallel=True)
+    shards = tp.params["img"]["blocks"]
+    if attn_impl != "xla":  # each shard's fat QKV over its 8 heads
+        assert [s["qkv"]["w"].shape[-1] for s in shards] == [3 * 8 * 8] * 2
+        assert not shards[1]["o"]["b"].any() and torch.equal(shards[0]["o"]["b"], params["img"]["blocks"]["attn"]["o"]["b"])
+    assert [m["mlp"]["fc1"]["w"].shape[-1] for m in tp.params["img"]["map_head"]] == [64, 64]
+    imgs = np.random.default_rng(2).integers(0, 256, (3, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    np.testing.assert_allclose(tp.embed_image_arrays(imgs), single.embed_image_arrays(imgs), rtol=2e-2, atol=2e-2)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (3, cfg.text_len)).astype(np.int32)
+    np.testing.assert_allclose(tp.embed_tokens(toks), single.embed_tokens(toks), rtol=2e-2, atol=2e-2)
+    if attn_impl == "fat_interpret":  # the text tower's fat QKV, built once a shard
+        assert len(tp.params["txt"]["layouts"]["fat"]) == 2
+
+
+def test_engine_model_parallel_matches_jax_shard_params():
+    """The port's one-process model-parallel engine against the JAX
+    package's encode_image and encode_text under shard_params on a 4 x 2
+    mesh (tests/test_parallel.py:91-106: rtol and atol 2e-2)."""
+    jcfg = js.tiny_test_config()
+    params = js.init_params(jax.random.PRNGKey(1), jcfg)
+    mesh42 = jmesh.make_mesh(8, model_parallel=2)
+    sharded = jmesh.shard_params(params, mesh42)
+    imgs = np.random.default_rng(1).integers(0, 256, (4, jcfg.image_size, jcfg.image_size, 3), dtype=np.uint8)
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab_size, (4, jcfg.text_len)).astype(np.int32)
+    e_img = np.asarray(js.encode_image(sharded, jnp.asarray(imgs), jcfg))
+    e_txt = np.asarray(js.encode_text(sharded, jnp.asarray(toks), jcfg))
+    tp = EmbeddingEngine(convert.tree_from_numpy(jax.tree.map(np.asarray, params)), ts.tiny_test_config(),
+                         max_batch=4, mesh=[["cpu", "cpu"]], model_parallel=True)
+    np.testing.assert_allclose(tp.embed_image_arrays(imgs), e_img, rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(tp.embed_tokens(toks), e_txt, rtol=2e-2, atol=2e-2)
+
+
+def test_restore_refuses_another_logical_shape_or_dtype(tmp_path):
+    """What orbax refuses, and only that: a leaf of another whole shape or
+    dtype; the same tree restores bit for bit (one process, no mesh)."""
+    from meme_search_engine_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
+    from meme_search_engine_tpu_torch.parallel.train import adamw
+
+    cfg = ts.tiny_test_config()
+    params = ts.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    _, state = adamw(params)
+    save_train_state(str(tmp_path), params, state, step=3)
+    same = ts.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    same, _, step = restore_train_state(str(tmp_path), same, adamw(same)[1])
+    assert step == 3 and all(torch.equal(a, b) for a, b in zip(tmesh.tree_leaves(same), tmesh.tree_leaves(params)))
+    for other in (ts.init_params(dataclasses.replace(cfg, mlp_dim=96), torch.Generator().manual_seed(0), "cpu"),
+                  ts.init_params(dataclasses.replace(cfg, param_dtype=torch.float32),
+                                 torch.Generator().manual_seed(0), "cpu")):
+        with pytest.raises(ValueError, match="saved"):
+            restore_train_state(str(tmp_path), other, adamw(other)[1])

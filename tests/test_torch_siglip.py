@@ -180,11 +180,15 @@ def test_encode_image_needs_prepared_params():
     assert e.shape == (1, cfg.width) and torch.isfinite(e).all()
     # the plain route reads the source tree, which prepare_params leaves be
     xla = dataclasses.replace(cfg, attn_impl="xla")
-    assert ts.prepare_params(p, xla) is p
+    assert ts.prepare_params(p, xla)["img"] is p["img"]
     with pytest.raises(ValueError, match="fat-layout"):
         ts.encode_image(prepared, torch.zeros((1, 28, 28, 3), dtype=torch.uint8), xla)
-    # the text tower passes through prepare_params untouched
-    assert prepared["txt"] is p["txt"]
+    # the text tower's leaves pass through prepare_params as they are (its
+    # MLP width, 128, needs no padding), beside the text routes' empty
+    # layouts
+    assert set(prepared["txt"]) == set(p["txt"]) | {"layouts"} and prepared["txt"]["layouts"] == {}
+    for path, leaf in _paths(p["txt"]):
+        assert _get(prepared["txt"], path) is leaf, path
 
 
 # ---------------------------------------------------------------------------
