@@ -10,7 +10,9 @@ exclusive file lock, so two processes starting at once never race on a
 half-written library: the second waits, then loads the first's result.
 
 All libraries are built together, one ``nvcc`` per source started in
-parallel, on the first call to :func:`library`.
+parallel, on the first call to :func:`library`, under the span
+``ops.build`` (``utils/profiling.py``) with the counts ``built``
+(libraries ``nvcc`` compiled) and ``loaded``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
+
+from ..utils import profiling
 
 __all__ = ["library", "build_all", "check", "stream_ptr", "BUILD_DIR", "build_log"]
 
@@ -90,47 +94,50 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             raise RuntimeError(
                 "CUDA kernels requested but torch.cuda.is_available() is False"
             )
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = _digest()
-        with open(BUILD_DIR / ".lock", "w") as lockf:
-            fcntl.flock(lockf, fcntl.LOCK_EX)
-            try:
-                procs = {}
-                for name in _sources():
-                    so = BUILD_DIR / f"lib{name}-{tag}.so"
-                    if so.exists():
-                        continue
-                    tmp = BUILD_DIR / f".lib{name}-{tag}.{os.getpid()}.so"
-                    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-                    procs[name] = (
-                        subprocess.Popen(
-                            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True,
-                        ),
-                        tmp,
-                        so,
-                    )
-                failed = []
-                for name, (proc, tmp, so) in procs.items():
-                    out, _ = proc.communicate()
-                    build_log[name] = out
-                    if proc.returncode != 0:
-                        failed.append(f"{name}:\n{out}")
-                        tmp.unlink(missing_ok=True)
-                    else:
-                        os.replace(tmp, so)
-                if failed:
-                    raise RuntimeError("nvcc failed for " + "\n".join(failed))
-            finally:
-                fcntl.flock(lockf, fcntl.LOCK_UN)
-        for name in _sources():
-            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{tag}.so"))
-            for (lname, fn), argtypes in _SIGNATURES.items():
-                if lname == name:
-                    f = getattr(lib, fn)
-                    f.argtypes = argtypes
-                    f.restype = c_int
-            _libs[name] = lib
+        with profiling.span("ops.build"):
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tag = _digest()
+            with open(BUILD_DIR / ".lock", "w") as lockf:
+                fcntl.flock(lockf, fcntl.LOCK_EX)
+                try:
+                    procs = {}
+                    for name in _sources():
+                        so = BUILD_DIR / f"lib{name}-{tag}.so"
+                        if so.exists():
+                            continue
+                        tmp = BUILD_DIR / f".lib{name}-{tag}.{os.getpid()}.so"
+                        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                        procs[name] = (
+                            subprocess.Popen(
+                                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True,
+                            ),
+                            tmp,
+                            so,
+                        )
+                    failed = []
+                    for name, (proc, tmp, so) in procs.items():
+                        out, _ = proc.communicate()
+                        build_log[name] = out
+                        if proc.returncode != 0:
+                            failed.append(f"{name}:\n{out}")
+                            tmp.unlink(missing_ok=True)
+                        else:
+                            os.replace(tmp, so)
+                    if failed:
+                        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+                    profiling.count("built", len(procs))
+                finally:
+                    fcntl.flock(lockf, fcntl.LOCK_UN)
+            for name in _sources():
+                lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{tag}.so"))
+                for (lname, fn), argtypes in _SIGNATURES.items():
+                    if lname == name:
+                        f = getattr(lib, fn)
+                        f.argtypes = argtypes
+                        f.restype = c_int
+                _libs[name] = lib
+                profiling.count("loaded", 1)
         return _libs
 
 

@@ -35,6 +35,7 @@ import torch
 
 from ..models import siglip
 from ..parallel.mesh import model_shards
+from ..utils import profiling
 from .tokenizer import load_tokenizer
 
 __all__ = ["EmbeddingEngine", "pow2_buckets", "resolve_device"]
@@ -70,6 +71,35 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _prepare(column: dict, device: torch.device, cfg: siglip.SigLIPConfig) -> dict:
+    """One device's tree: each tower moved to ``device`` and put into the
+    kernels' layouts, under an ``engine.prepare`` span a tower."""
+    tree = {}
+    for tower, sub in column.items():
+        with profiling.span("engine.prepare", attrs={"tower": tower}):
+            placed = _to(sub, device)
+            if profiling.is_recording():
+                profiling.count("bytes", _nbytes(placed))
+            tree.update(siglip.prepare_params({tower: placed}, cfg))
+    return tree
+
+
+def _fetch(y: torch.Tensor) -> np.ndarray:
+    """A bucket's embeddings on the host: waits for the device, then copies."""
+    with profiling.span("engine.d2h"):
+        out = y.cpu().numpy()
+        profiling.count("bytes", out.nbytes)
+        return out
 
 
 def _join(trees: list) -> dict:
@@ -111,31 +141,33 @@ class EmbeddingEngine:
         mesh: Optional[Sequence] = None,
         model_parallel: bool = False,
     ):
-        self.cfg = cfg
-        self.max_batch = max_batch
-        rows = [[device]] if not mesh else [
-            list(r) if isinstance(r, (list, tuple)) else [r] for r in mesh
-        ]
-        if len({len(r) for r in rows}) != 1:
-            raise ValueError(f"mesh rows differ in length: {mesh}")
-        self.grid = [[resolve_device(d) for d in (r if model_parallel else r[:1])] for r in rows]
-        self.devices = [r[0] for r in self.grid]  # where each replica's batch lies
-        self.device = self.devices[0]
-        if any(d.type == "cuda" for r in self.grid for d in r):
-            # the dense layers' bf16 GEMMs accumulate in fp32, split-K
-            # partial sums included, as the reference's do (process-wide)
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-        towers = {k: params[k] for k in ("img", "txt")}
-        n = len(self.grid[0])
-        columns = model_shards(towers, n) if n > 1 else [towers]
-        replicas = {}
-        for r in self.grid:
-            if tuple(r) not in replicas:
-                trees = [siglip.prepare_params(_to(c, d), cfg) for c, d in zip(columns, r)]
-                replicas[tuple(r)] = trees[0] if n == 1 else _join(trees)
-        self._replicas = [replicas[tuple(r)] for r in self.grid]
-        self.params = self._replicas[0]
-        self.tokenizer = load_tokenizer(tokenizer_path, cfg.vocab_size, cfg.text_len)
+        with profiling.span("engine.init"):
+            self.cfg = cfg
+            self.max_batch = max_batch
+            rows = [[device]] if not mesh else [
+                list(r) if isinstance(r, (list, tuple)) else [r] for r in mesh
+            ]
+            if len({len(r) for r in rows}) != 1:
+                raise ValueError(f"mesh rows differ in length: {mesh}")
+            self.grid = [[resolve_device(d) for d in (r if model_parallel else r[:1])]
+                         for r in rows]
+            self.devices = [r[0] for r in self.grid]  # where each replica's batch lies
+            self.device = self.devices[0]
+            if any(d.type == "cuda" for r in self.grid for d in r):
+                # the dense layers' bf16 GEMMs accumulate in fp32, split-K
+                # partial sums included, as the reference's do (process-wide)
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+            towers = {k: params[k] for k in ("img", "txt")}
+            n = len(self.grid[0])
+            columns = model_shards(towers, n) if n > 1 else [towers]
+            replicas = {}
+            for r in self.grid:
+                if tuple(r) not in replicas:
+                    trees = [_prepare(c, d, cfg) for c, d in zip(columns, r)]
+                    replicas[tuple(r)] = trees[0] if n == 1 else _join(trees)
+            self._replicas = [replicas[tuple(r)] for r in self.grid]
+            self.params = self._replicas[0]
+            self.tokenizer = load_tokenizer(tokenizer_path, cfg.vocab_size, cfg.text_len)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run every bucket of both towers once (builds the kernels on
@@ -149,26 +181,45 @@ class EmbeddingEngine:
 
     def _run(self, fn, replica: int, chunk: np.ndarray) -> torch.Tensor:
         device = self.devices[replica]
-        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
-        if device.type == "cuda":
-            with torch.cuda.device(device):
-                return fn(self._replicas[replica], x)
-        return fn(self._replicas[replica], x)
+        with profiling.span("engine.h2d"):
+            host = torch.from_numpy(np.ascontiguousarray(chunk))
+            x = host.to(device)
+            if profiling.is_recording():
+                n = host.numel() * host.element_size()
+                profiling.count("bytes", n)
+                profiling.count("pageable_bytes", 0 if host.is_pinned() else n)
+        with profiling.span("engine.launch"):
+            if device.type == "cuda":
+                with torch.cuda.device(device):
+                    return fn(self._replicas[replica], x)
+            return fn(self._replicas[replica], x)
 
     def _run_bucketed(self, fn: Callable[[dict, torch.Tensor], torch.Tensor], batch: np.ndarray) -> np.ndarray:
+        """Spans: ``engine.call`` (counts ``rows``, ``buckets``) over one
+        ``engine.bucket`` (``rows``) a bucket and replica, each holding its
+        ``engine.h2d`` (``bytes``, ``pageable_bytes``), ``engine.launch``
+        and ``engine.d2h`` (``bytes``). A bucket split across replicas
+        fetches every replica's rows after all have launched, so there
+        each ``engine.d2h`` lies under ``engine.call``."""
         n = batch.shape[0]
         nd = len(self.devices)
         out = np.empty((n, self.cfg.d_emb), dtype=np.float32)
-        i = 0
-        for b in pow2_buckets(n, self.max_batch):
-            if nd > 1 and b % nd == 0:
-                # every device's share first, then the copies back
-                per = b // nd
-                parts = [self._run(fn, r, batch[i + r * per : i + (r + 1) * per]) for r in range(nd)]
-                out[i : i + b] = np.concatenate([p.cpu().numpy() for p in parts])
-            else:
-                out[i : i + b] = self._run(fn, 0, batch[i : i + b]).cpu().numpy()
-            i += b
+        buckets = pow2_buckets(n, self.max_batch)
+        with profiling.span("engine.call", rows=n, buckets=len(buckets)):
+            i = 0
+            for b in buckets:
+                if nd > 1 and b % nd == 0:
+                    # every device's share first, then the copies back
+                    per = b // nd
+                    parts = []
+                    for r in range(nd):
+                        with profiling.span("engine.bucket", rows=per):
+                            parts.append(self._run(fn, r, batch[i + r * per : i + (r + 1) * per]))
+                    out[i : i + b] = np.concatenate([_fetch(p) for p in parts])
+                else:
+                    with profiling.span("engine.bucket", rows=b):
+                        out[i : i + b] = _fetch(self._run(fn, 0, batch[i : i + b]))
+                i += b
         return out
 
     def embed_image_arrays(self, images: np.ndarray) -> np.ndarray:
