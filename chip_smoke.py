@@ -201,6 +201,7 @@ from __future__ import annotations
 import json
 import os
 import queue
+import re
 import subprocess
 import sys
 import time
@@ -2802,6 +2803,209 @@ def timed_row(name, b, kern, plain, lib, flops, nbytes, exp_ops=0.0) -> dict:
     return row
 
 
+def gemm_weights(cfg, rn) -> dict:
+    """One image layer's GEMM weights at SO400M widths, random (``rn``
+    draws bf16 on the card), in the kernels' layouts: the packed fat QKV
+    (N = 3 x 16 x 80) with its key mask, the MAP head's k|v (N = 2304), o,
+    LN1's gamma and beta, fc1 and fc2 as drawn and padded to the hidden
+    width of the kernels' tiles (4304 to 4352)."""
+    import torch
+
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.ops import attention, fused
+
+    d, h, dh = cfg.width, cfg.num_heads, cfg.head_dim
+
+    def dense(d_in, d_out):
+        return {"w": rn(d_in, d_out, std=d_in**-0.5), "b": rn(d_out, std=0.02)}
+
+    attn_p = {n: dense(d, d) for n in "qkvo"}
+    (wq, bq), (wk, bk), (wv, bv) = siglip._fat_qkv_weights(attn_p, h, dh)
+    fc1, fc2 = dense(d, cfg.mlp_dim), dense(cfg.mlp_dim, d)
+    w1, b1, w2 = (t.contiguous() for t in fused.pad_hidden(fc1["w"], fc1["b"], fc2["w"]))
+    return {
+        "attn_p": attn_p,
+        "wqkv": torch.cat([wq, wk, wv], 1).contiguous(), "bqkv": torch.cat([bq, bk, bv]).contiguous(),
+        "g1": (1 + rn(d, std=0.1)).contiguous(), "be1": rn(d, std=0.1),
+        "fc1": fc1, "fc2": fc2, "w1": w1, "b1": b1, "w2": w2,
+        "wkv": torch.cat([attn_p["k"]["w"], attn_p["v"]["w"]], 1).contiguous(),
+        "bkv": torch.cat([attn_p["k"]["b"], attn_p["v"]["b"]]).contiguous(),
+        "kmask": (cfg.num_patches, h, attention.fat_width(dh), dh),
+    }
+
+
+def gemm_cases(cfg, wt, x, attn_out) -> dict:
+    """The image tower's GEMM launches on x (B, 736, 1152) and the
+    attention's output: kernel 1 as QKV and as the MAP head's k|v, kernel 2
+    as the o-projection, kernel 3 whole and as its two launches (LN + fc1 +
+    gelu at the padded hidden width, fc2 + residual). name -> (kernel call,
+    plain call, library call, flops, bytes, tolerance, rows compared: None,
+    every row at rtol = atol = tolerance)."""
+    import torch
+    import torch.nn.functional as F
+
+    from meme_search_engine_tpu_torch.ops import fused
+
+    d = cfg.width
+    m, mr, mp, nq = x.shape[0] * x.shape[1], cfg.mlp_dim, wt["w1"].shape[1], wt["wqkv"].shape[1]
+    g1, be1, fc1, fc2, o = wt["g1"], wt["be1"], wt["fc1"], wt["fc2"], wt["attn_p"]["o"]
+    x2 = x.reshape(m, d)
+    h = fused.ln_matmul_plain(x, g1, be1, wt["w1"], wt["b1"], act="gelu")  # fc2's input
+    el = 2  # bytes per bf16
+
+    def ln():
+        return F.layer_norm(x2, (d,), g1, be1, 1e-6)
+
+    def ln_row(w, b, **kw):
+        return (lambda: fused.ln_matmul(x, g1, be1, w, b, **kw),
+                lambda: fused.ln_matmul_plain(x, g1, be1, w, b, **kw))
+
+    return {
+        "ln_matmul": (
+            *ln_row(wt["wqkv"], wt["bqkv"], k_mask=wt["kmask"]),
+            lambda: torch.addmm(wt["bqkv"], ln(), wt["wqkv"]),
+            2.0 * m * d * nq, el * (m * d + d * nq + m * nq + 2 * d + nq), CHECK_TOL, None,
+        ),
+        "ln_matmul[map_kv]": (
+            *ln_row(wt["wkv"], wt["bkv"]),
+            lambda: torch.addmm(wt["bkv"], ln(), wt["wkv"]),
+            2.0 * m * d * 2 * d, el * (m * d + d * 2 * d + m * 2 * d + 2 * d + 2 * d), CHECK_TOL, None,
+        ),
+        "matmul_residual": (
+            lambda: fused.matmul_residual(attn_out, o["w"], o["b"], x),
+            lambda: fused.matmul_residual_plain(attn_out, o["w"], o["b"], x),
+            lambda: torch.addmm(x2, attn_out.reshape(m, d), o["w"]),
+            2.0 * m * d * d, el * (3 * m * d + d * d + d), CHECK_TOL, None,
+        ),
+        # with x as the residual (b2 left out, as matmul_residual's yardstick)
+        "ln_mlp_residual": (
+            lambda: fused.ln_mlp_residual(x, g1, be1, wt["w1"], wt["b1"], wt["w2"], fc2["b"]),
+            lambda: fused.ln_mlp_residual_plain(x, g1, be1, fc1["w"], fc1["b"], fc2["w"], fc2["b"]),
+            lambda: torch.addmm(
+                x2, F.gelu(torch.addmm(fc1["b"], ln(), fc1["w"]), approximate="tanh"), fc2["w"]),
+            2.0 * 2 * m * d * mr, el * (2 * m * d + 2 * d * mr + mr + 3 * d), CHECK_TOL, None,
+        ),
+        # its two launches apart, at the padded hidden width: LN + fc1 +
+        # gelu into the (rows, MP) scratch, then fc2 + b2 + x
+        "ln_mlp_residual[fc1]": (
+            *ln_row(wt["w1"], wt["b1"], act="gelu"),
+            lambda: F.gelu(torch.addmm(wt["b1"], ln(), wt["w1"]), approximate="tanh"),
+            2.0 * m * d * mp, el * (m * d + d * mp + m * mp + 2 * d + mp), CHECK_TOL, None,
+        ),
+        "ln_mlp_residual[fc2]": (
+            lambda: fused.matmul_residual(h, wt["w2"], fc2["b"], x),
+            lambda: fused.matmul_residual_plain(h, wt["w2"], fc2["b"], x),
+            lambda: torch.addmm(x2, h.reshape(m, mp), wt["w2"]),
+            2.0 * m * mp * d, el * (m * mp + mp * d + d + 2 * m * d), CHECK_TOL, None,
+        ),
+    }
+
+
+def ln_copy_routes(cfg, wt, x) -> dict:
+    """The LN GEMMs' other route, timed and run by no path: the LayerNorm
+    written out first (``F.layer_norm`` into a bf16 copy that the GEMM
+    reads back), then the kernel's no-LN form on the copy
+    (``matmul_residual`` with a zero residual, whose reads it adds; no key
+    mask for QKV, no gelu for fc1). Each kernel is held against the route
+    timed in the same process: CUDA-event medians in ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from meme_search_engine_tpu_torch.ops import fused
+
+    xn = F.layer_norm(x, (cfg.width,), wt["g1"], wt["be1"], 1e-6)
+    out = {}
+    for name, w, b in (("ln_matmul", wt["wqkv"], wt["bqkv"]), ("ln_mlp_residual[fc1]", wt["w1"], wt["b1"])):
+        zero = torch.zeros((*x.shape[:2], w.shape[1]), dtype=torch.bfloat16, device=x.device)
+        out[name] = {
+            "layer_norm": time_ms(lambda: F.layer_norm(x, (cfg.width,), wt["g1"], wt["be1"], 1e-6), reps=10),
+            "ss_gemm": time_ms(lambda: fused.matmul_residual(xn, w, b, zero), reps=10),
+        }
+        out[name]["total"] = out[name]["layer_norm"] + out[name]["ss_gemm"]
+        del zero
+    return out
+
+
+def gemm_ptxas(build_log: dict):
+    """ptxas's report (``-Xptxas -v``) for each instantiation of the GEMM
+    kernel in gemm.cu's build output: "gemm_kernel<BN, LN>" -> its
+    registers, spill stores and loads (bytes) and any C75xx note (such as
+    C7512, wgmma serialised for want of registers) that names it. None,
+    and a line in the log that says so, where this process built no
+    gemm.cu (the library came from the build directory): there is no
+    report to read then, and an empty one would read as "no spills"."""
+    if "gemm" not in build_log:
+        log("ptxas gemm.cu: no report, the library was loaded as built before "
+            "(empty the build directory for one)")
+        return None
+    name_re = re.compile(r"gemm_kernelILi(\d+)ELb([01])E")
+    report, current = {}, None
+    for line in build_log["gemm"].splitlines():
+        m = name_re.search(line)
+        if m:
+            key = f"gemm_kernel<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}>"
+            entry = report.setdefault(key, {"registers": None, "spill_stores": None,
+                                            "spill_loads": None, "notes": []})
+            if re.search(r"\(C75\d\d\)", line):
+                entry["notes"].append(line.strip())
+            else:
+                current = entry
+            continue
+        if current is None:
+            continue
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)):
+            current["registers"] = int(m.group(1))
+            current = None
+    return report
+
+
+def gemm_bench(root: str) -> int:
+    """``python3 chip_smoke.py --gemm-bench [ROOT]``: the GEMM kernels alone,
+    from the package under ROOT (this checkout by default): ptxas's report
+    for each instantiation, then the image tower's GEMM launches
+    (``gemm_cases``) checked against their plain versions at B = 2 and 128
+    and timed at B = 128 beside the library call and the bound, the LN
+    GEMMs' normalised-copy routes (``ln_copy_routes``) and kernels 1, 2
+    and 3 at the text routes' shapes (``text_kernel_cases``, 128 texts);
+    one JSON line, then the card's name and power limit. For an A/B in
+    one call: parent, change, change, parent."""
+    import torch
+
+    _bench_package(root)
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.ops import _build, attention
+
+    cfg = siglip.SO400M_14_384
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    sp = (cfg.num_patches + 15) // 16 * 16
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    out = {"root": os.path.abspath(root), "b": B_TIME, "ptxas": gemm_ptxas(_build.build_log)}
+    if out["ptxas"] is not None:
+        log(f"ptxas gemm.cu: {out['ptxas']}")
+    wt = gemm_weights(cfg, rn)
+    for b in (B_CHECK, B_TIME):
+        x, ao = rn(b, sp, cfg.width), rn(b, sp, cfg.width)
+        for name, (kern, plain, lib, flops, nbytes, tol, rows) in gemm_cases(cfg, wt, x, ao).items():
+            err = check_kernel(name, b, kern, plain, tol, rows)
+            if b == B_TIME:
+                out[name] = {"max_abs_err": err, **timed_row(name, b, kern, plain, lib, flops, nbytes)}
+    out["normalised_copy_route_ms"] = ln_copy_routes(cfg, wt, x)
+    del x, ao, kern, plain, lib
+    for name, (kern, plain, lib, flops, nbytes, exp_ops, tol, rows) in text_kernel_cases(cfg, rn, B_TIME).items():
+        if name.startswith("fat_vit_mha"):
+            continue
+        err = check_kernel(name, B_TIME, kern, plain, tol, rows)
+        out[name] = {"max_abs_err": err, **timed_row(name, B_TIME, kern, plain, lib, flops, nbytes)}
+    print(json.dumps(out), flush=True)
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
 def text_kernel_cases(cfg, rn, b: int) -> dict:
     """Kernels 1, 2, 3 and 7 at the text routes' shapes, B texts of S = 64
     (B * 64 rows): the fused route's packed QKV (N = 3 x 1152 = 3456, no
@@ -3226,6 +3430,9 @@ def main(disk_n: int = DISK_N) -> int:
         for line in out.splitlines():
             if any(w in line for w in ("registers", "spill", "wgmma", "setmaxnreg", "arning")):
                 log(f"  ptxas {name}: {line.strip()}")
+    gemm_report = gemm_ptxas(_build.build_log)
+    for inst, rep in sorted((gemm_report or {}).items()):
+        log(f"  ptxas {inst}: {rep}")
 
     # -- 3. kernel checks and timings ---------------------------------------
     cfg = siglip.SO400M_14_384
@@ -3234,7 +3441,6 @@ def main(disk_n: int = DISK_N) -> int:
     HC = H * C
     S = cfg.num_patches
     SP = ((S + 15) // 16) * 16
-    M_REAL = cfg.mlp_dim
     TS, TH = cfg.text_len, cfg.text_num_heads
     TDH = cfg.text_width // TH
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -3242,24 +3448,12 @@ def main(disk_n: int = DISK_N) -> int:
     def rn(*shape, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
 
-    def dense(d_in, d_out):
-        return {"w": rn(d_in, d_out, std=d_in**-0.5), "b": rn(d_out, std=0.02)}
-
-    attn_p = {n: dense(D, D) for n in "qkvo"}
-    (wq, bq), (wk, bk), (wv, bv) = siglip._fat_qkv_weights(attn_p, H, DH)
-    wqkv = torch.cat([wq, wk, wv], 1).contiguous()
-    bqkv = torch.cat([bq, bk, bv]).contiguous()
-    g1, be1 = (1 + rn(D, std=0.1)).contiguous(), rn(D, std=0.1)
-    fc1, fc2 = dense(D, M_REAL), dense(M_REAL, D)
-    w1, b1, w2 = (t.contiguous() for t in fused.pad_hidden(fc1["w"], fc1["b"], fc2["w"]))
-    MP = w1.shape[1]
-    wkv = torch.cat([attn_p["k"]["w"], attn_p["v"]["w"]], 1).contiguous()
-    bkv = torch.cat([attn_p["k"]["b"], attn_p["v"]["b"]]).contiguous()
-    kmask = (S, H, C, DH)
+    wt = gemm_weights(cfg, rn)
+    attn_p = wt["attn_p"]
 
     def inputs(b):
         x = rn(b, SP, D)
-        qkvf = fused.ln_matmul_plain(x, g1, be1, wqkv, bqkv, k_mask=kmask)
+        qkvf = fused.ln_matmul_plain(x, wt["g1"], wt["be1"], wt["wqkv"], wt["bqkv"], k_mask=wt["kmask"])
         attn_out = attention.fat_vit_mha_packed_plain(qkvf, H, DH)
         return x, qkvf, attn_out
 
@@ -3269,70 +3463,9 @@ def main(disk_n: int = DISK_N) -> int:
     #          valid ones), atol only)
     def cases(b):
         x, qkvf, attn_out = inputs(b)
-        m = b * SP
-        h = fused.ln_matmul_plain(x, g1, be1, w1, b1, act="gelu")  # fc2's input
-        x2 = x.reshape(m, D)
-        el = 2  # bytes per bf16
-        return {
-            "ln_matmul": (
-                lambda: fused.ln_matmul(x, g1, be1, wqkv, bqkv, k_mask=kmask),
-                lambda: fused.ln_matmul_plain(x, g1, be1, wqkv, bqkv, k_mask=kmask),
-                lambda: torch.addmm(bqkv, F.layer_norm(x2, (D,), g1, be1, 1e-6), wqkv),
-                2.0 * m * D * 3 * HC,
-                el * (m * D + D * 3 * HC + m * 3 * HC + 2 * D + 3 * HC),
-                CHECK_TOL, None,
-            ),
-            "ln_matmul[map_kv]": (
-                lambda: fused.ln_matmul(x, g1, be1, wkv, bkv),
-                lambda: fused.ln_matmul_plain(x, g1, be1, wkv, bkv),
-                lambda: torch.addmm(bkv, F.layer_norm(x2, (D,), g1, be1, 1e-6), wkv),
-                2.0 * m * D * 2 * D,
-                el * (m * D + D * 2 * D + m * 2 * D + 2 * D + 2 * D),
-                CHECK_TOL, None,
-            ),
-            **fat_rows(attention, qkvf, H, DH, S),
-            "matmul_residual": (
-                lambda: fused.matmul_residual(attn_out, attn_p["o"]["w"], attn_p["o"]["b"], x),
-                lambda: fused.matmul_residual_plain(attn_out, attn_p["o"]["w"], attn_p["o"]["b"], x),
-                lambda: torch.addmm(x2, attn_out.reshape(m, D), attn_p["o"]["w"]),
-                2.0 * m * D * D,
-                el * (3 * m * D + D * D + D),
-                CHECK_TOL, None,
-            ),
-            # with x as the residual (b2 left out, as matmul_residual's yardstick)
-            "ln_mlp_residual": (
-                lambda: fused.ln_mlp_residual(x, g1, be1, w1, b1, w2, fc2["b"]),
-                lambda: fused.ln_mlp_residual_plain(x, g1, be1, fc1["w"], fc1["b"], fc2["w"], fc2["b"]),
-                lambda: torch.addmm(
-                    x2,
-                    F.gelu(torch.addmm(fc1["b"], F.layer_norm(x2, (D,), g1, be1, 1e-6), fc1["w"]),
-                           approximate="tanh"),
-                    fc2["w"],
-                ),
-                2.0 * 2 * m * D * M_REAL,
-                el * (2 * m * D + 2 * D * M_REAL + M_REAL + 3 * D),
-                CHECK_TOL, None,
-            ),
-            # its two launches apart, at the padded hidden width MP: LN +
-            # fc1 + gelu into the (rows, MP) scratch, then fc2 + b2 + x
-            "ln_mlp_residual[fc1]": (
-                lambda: fused.ln_matmul(x, g1, be1, w1, b1, act="gelu"),
-                lambda: fused.ln_matmul_plain(x, g1, be1, w1, b1, act="gelu"),
-                lambda: F.gelu(torch.addmm(b1, F.layer_norm(x2, (D,), g1, be1, 1e-6), w1),
-                               approximate="tanh"),
-                2.0 * m * D * MP,
-                el * (m * D + D * MP + m * MP + 2 * D + MP),
-                CHECK_TOL, None,
-            ),
-            "ln_mlp_residual[fc2]": (
-                lambda: fused.matmul_residual(h, w2, fc2["b"], x),
-                lambda: fused.matmul_residual_plain(h, w2, fc2["b"], x),
-                lambda: torch.addmm(x2, h.reshape(m, MP), w2),
-                2.0 * m * MP * D,
-                el * (m * MP + MP * D + D + 2 * m * D),
-                CHECK_TOL, None,
-            ),
-        }
+        rows = gemm_cases(cfg, wt, x, attn_out)
+        return {"ln_matmul": rows["ln_matmul"], "ln_matmul[map_kv]": rows["ln_matmul[map_kv]"],
+                **fat_rows(attention, qkvf, H, DH, S), **rows}
 
     def text_cases(b, s):
         """The fused attention kernel at the text tower's shapes: q/k/v
@@ -3426,19 +3559,12 @@ def main(disk_n: int = DISK_N) -> int:
     log(f"time fused_mha B=1: kernel {one['ms_b1']:.4f} ms, plain {one['plain_ms_b1']:.4f} ms, "
         f"library {one['library_ms_b1']:.4f} ms, bound {one['bound_ms_b1']:.5f} ms (bytes)")
     del oq, okk, ov
-    # ln_matmul's other route, measured beside it and run by no path: the
-    # LayerNorm written out first (F.layer_norm into a bf16 copy that the
-    # GEMM reads back) and the kernel's SS form on the copy
-    # (matmul_residual with a zero residual, whose reads it adds)
-    xr = rn(B_TIME, SP, D)
-    xn = F.layer_norm(xr, (D,), g1, be1, 1e-6)
-    zero = torch.zeros((B_TIME, SP, 3 * HC), dtype=torch.bfloat16, device=dev)
-    copy_route = {"layer_norm": time_ms(lambda: F.layer_norm(xr, (D,), g1, be1, 1e-6), reps=10),
-                  "ss_gemm": time_ms(lambda: fused.matmul_residual(xn, wqkv, bqkv, zero), reps=10)}
-    results["ln_matmul"]["normalised_copy_route_ms"] = copy_route
-    log(f"time ln_matmul's normalised-copy route B={B_TIME}: F.layer_norm {copy_route['layer_norm']:.3f} ms "
-        f"+ SS GEMM {copy_route['ss_gemm']:.3f} ms, against the kernel's {results['ln_matmul']['ms']:.3f} ms")
-    del xr, xn, zero
+    # the LN GEMMs' other route, timed beside them and run by no path
+    routes_ms = ln_copy_routes(cfg, wt, rn(B_TIME, SP, D))
+    for name, r in routes_ms.items():
+        results[name]["normalised_copy_route_ms"] = r
+        log(f"time {name}'s normalised-copy route B={B_TIME}: F.layer_norm {r['layer_norm']:.3f} ms "
+            f"+ SS GEMM {r['ss_gemm']:.3f} ms, against the kernel's {results[name]['ms']:.3f} ms")
     torch.cuda.empty_cache()
 
     # kernel 8, the attention fused with the o-projection and the residual:
@@ -4027,9 +4153,11 @@ def main(disk_n: int = DISK_N) -> int:
         if name == "ln_matmul":
             e["map_kv"] = {k: results["ln_matmul[map_kv]"][k] for k in keys}
             e["normalised_copy_route_ms"] = results[name]["normalised_copy_route_ms"]
+            e["ptxas"] = gemm_report and {k: v for k, v in gemm_report.items() if k.endswith("true>")}
         if name == "ln_mlp_residual":
             for part in ("fc1", "fc2"):
                 e[part] = {k: results[f"ln_mlp_residual[{part}]"][k] for k in keys}
+            e["fc1"]["normalised_copy_route_ms"] = results["ln_mlp_residual[fc1]"]["normalised_copy_route_ms"]
         if name == "fat_vit_mha_packed":
             # fat_vit_mha (attention.py:321): the same kernel, other strides
             e["exp_bound_ms"] = results[name]["exp_bound_ms"]
@@ -4100,6 +4228,8 @@ if __name__ == "__main__":
         sys.exit(adc_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--proj-bench"]:
         sys.exit(proj_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] == ["--gemm-bench"]:
+        sys.exit(gemm_bench(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--gather-bench"]:
         sys.exit(gather_bench())
     if sys.argv[1:2] == ["--train-scrape"]:

@@ -15,32 +15,40 @@
 // tensor cores' full rate.
 //
 // Design: a persistent, warp-specialised kernel of three warpgroups, one
-// CTA per SM walking 128 x BN output tiles (BN 128, 192 or, without LN,
-// 256: the widest that wastes few of N's columns). Warpgroup 2 produces: it
-// gives up registers (setmaxnreg) and one of its threads keeps a ring of three
-// or four stages full with TMA loads, a 128 x 64 tile of A (K-major) and a
-// 64 x BN tile of W (N-major, BN/64 boxes), both 128-byte swizzled, each
-// stage guarded by a full and an empty mbarrier. Warpgroups 0 and 1
-// consume, each owning 64 rows of the tile with fp32 accumulators in
-// registers; W reaches wgmma as an MN-major B operand in shared memory.
-// Without LN (matmul_residual), A is a shared-memory operand too (the SS
-// form). With LN (ln_matmul), each consumer loads its A fragments from the
-// swizzled tile with ldmatrix (the swizzle's XOR applied to the address),
-// normalises them in fp32 with its rows' (mu, 1/sigma) held in registers
-// for the whole K loop and gamma, beta staged once in shared memory,
-// rounds them to bf16 and issues wgmma with A from registers (the RS
-// form), so the normalised activations never reach device memory; two
-// sets of fragments let one stage be normalised while the last one's
-// products run. The row statistics come from a one-warp-per-row pre-pass.
-// Either way one stage's products stay in flight while the next stage's
-// are issued. The epilogue works from the accumulators: bias in fp32, then
-// ln_matmul's optional tanh-gelu and packed-QKV key mask, or
-// matmul_residual's residual (loaded by TMA into shared memory while the
-// products run), one rounding to bf16, then the tile goes through
-// 128-byte-swizzled shared memory to TMA stores, which run on while the
-// next tile's products do. TMA fills out-of-bounds loads with zeros and
-// clips out-of-bounds stores, which covers ragged M, N and K (gamma and
-// beta are staged as zero past K).
+// CTA per SM walking 128 x BN output tiles (BN 128, 192 or 256: without
+// LN the widest that wastes few of N's columns, with LN the fewest tiles,
+// see pick_bn). Warpgroup 2 produces: one of its threads
+// keeps a ring of three or four stages full with TMA loads, a 128 x 64 tile
+// of A (K-major) and a 64 x BN tile of W (N-major, BN/64 boxes), both
+// 128-byte swizzled, each stage guarded by a full and an empty mbarrier.
+// Warpgroups 0 and 1 consume, each owning 64 rows of the tile with fp32
+// accumulators in registers; both operands reach wgmma from shared memory
+// (the SS form), W as an MN-major B operand. One stage's products stay in
+// flight while the next stage's are issued.
+//
+// With LN (ln_matmul), the producer warpgroup's other three warps normalise
+// each A stage once, in place, before the consumers read it: each thread
+// takes 8 columns of 10 or 11 rows, reads them from the swizzled stage,
+// computes (x - mu) * rs * g + b in fp32, rounds to bf16 and writes them
+// back where they were, then the warps fence the stage for the async proxy
+// and arrive on its third barrier, "normalised", which the consumers wait
+// on instead of "full". The rows' (mu, 1/sigma) come from a one-warp-per-row
+// pre-pass and are staged in shared memory a tile at a time, gamma and beta
+// once a launch. So the normalised activations never reach device memory,
+// the consumers hold no A fragments, and LN tiles can be 256 wide.
+// The normalising sets the pace (at K = 1152 it takes about 1.3 times a
+// stage's products), so the consumers sleep while they wait for it, and the
+// warpgroups keep the block's 168 registers a thread: ptxas holds the
+// consumers' code to that count, and the normalising warps use the rest.
+//
+// The epilogue works from the accumulators: bias in fp32, then ln_matmul's
+// optional tanh-gelu and packed-QKV key mask, or matmul_residual's residual
+// (loaded by TMA into shared memory while the products run), one rounding
+// to bf16, then the tile goes through 128-byte-swizzled shared memory to
+// TMA stores, which run on while the next tile's products do. TMA fills
+// out-of-bounds loads with zeros and clips out-of-bounds stores, which
+// covers ragged M, N and K (gamma and beta are staged as zero past K, so
+// the normalised stage stays zero there).
 //
 // Numerics follow the reference: LN statistics in fp32, LN output rounded
 // to bf16 before the MMA (fused.py:39-41), fp32 accumulation, bias (and
@@ -55,7 +63,7 @@ namespace {
 constexpr int BM = 128, BK = 64, NT = 384, MAX_STAGES = 4;
 constexpr int A_BYTES = BM * BK * 2;  // one stage of A: 128 rows of 128 B
 constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory a block can use
-constexpr int BAR_BYTES = 2 * MAX_STAGES * 8 + 16;  // full, empty, two residual
+constexpr int BAR_BYTES = 3 * MAX_STAGES * 8 + 16;  // full, empty, normalised, two residual
 
 struct Epilogue {
   const bf16* bias;  // (N,)
@@ -117,44 +125,80 @@ ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats, int M, i
 }
 
 // LayerNorm of two bf16 values of one row: (x - mu) * rs * g + b in fp32,
-// rounded to bf16; gb = ((g0, b0), (g1, b1)) in bf16
-__device__ __forceinline__ uint32_t ln_pair(uint32_t v, float mu, float rs, uint2 gb) {
-  const __nv_bfloat162 h = u32_as_bf2(v), p0 = u32_as_bf2(gb.x), p1 = u32_as_bf2(gb.y);
-  __nv_bfloat162 y =
-      __floats2bfloat162_rn((__low2float(h) - mu) * rs * __low2float(p0) + __high2float(p0),
-                            (__high2float(h) - mu) * rs * __low2float(p1) + __high2float(p1));
-  return *reinterpret_cast<uint32_t*>(&y);
+// rounded to bf16; st = (mu, rs)
+__device__ __forceinline__ uint32_t ln_pair(uint32_t v, float2 st, float g0, float b0, float g1,
+                                            float b1) {
+  const float x0 = __uint_as_float(v << 16), x1 = __uint_as_float(v & 0xffff0000u);
+  return bf2_as_u32(__floats2bfloat162_rn((x0 - st.x) * st.y * g0 + b0, (x1 - st.x) * st.y * g1 + b1));
 }
 
-// loads the A fragments of one stage for this thread's warp (16 rows) with
-// ldmatrix and normalises them: a[kk] covers k 16 kk .. 16 kk + 15 of the
-// stage. ldmatrix rows: lanes 0-15 give rows 0-15 at k 0-7 of each 16,
-// lanes 16-31 the same rows at k 8-15. The 16-byte chunk c of row r sits
-// at chunk c ^ (r % 8), and r % 8 == lane % 8 here.
-__device__ __forceinline__ void ln_fragments(uint32_t (&a)[4][4], uint32_t arow, int lane,
-                                             const __nv_bfloat162* gb, float2 st0,
-                                             float2 st1) {
+// normalises, in place, one 16-byte chunk (8 columns) of each of the rows
+// r0 + 12 j (j = 0, 1, ...) below BM of an A stage, every row's load first,
+// then the arithmetic, so that the loads' latency is paid once. The
+// 128-byte swizzle puts chunk c of row r at chunk c ^ (r % 8), and r % 8
+// alternates between two values from one of these rows to the next, so row
+// j's chunk lies at even (j even) or odd (j odd) + 1536 j bytes. g, b: the
+// chunk's gamma and beta; st: the rows' (mu, rs), 12 apart; eleven: whether
+// row 10 is below BM
+__device__ __forceinline__ void ln_chunk_rows(unsigned char* even, unsigned char* odd, bool eleven,
+                                              const float2* st, const float (&g)[8],
+                                              const float (&b)[8]) {
+  uint4 w[11];
+  float2 rs[11];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(a[kk], arow + (((2 * kk + (lane >> 4)) ^ (lane & 7)) << 4));
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint2 lo = *reinterpret_cast<const uint2*>(gb + kk * 16);
-    const uint2 hi = *reinterpret_cast<const uint2*>(gb + kk * 16 + 8);
-    a[kk][0] = ln_pair(a[kk][0], st0.x, st0.y, lo);
-    a[kk][1] = ln_pair(a[kk][1], st1.x, st1.y, lo);
-    a[kk][2] = ln_pair(a[kk][2], st0.x, st0.y, hi);
-    a[kk][3] = ln_pair(a[kk][3], st1.x, st1.y, hi);
+  for (int j = 0; j < 11; ++j) {
+    if (j < 10 || eleven) {
+      w[j] = *reinterpret_cast<const uint4*>((j & 1 ? odd : even) + 1536 * j);
+      rs[j] = st[12 * j];
+    }
   }
+#pragma unroll
+  for (int j = 0; j < 11; ++j) {
+    if (j < 10 || eleven) {
+      uint4 y;
+      y.x = ln_pair(w[j].x, rs[j], g[0], b[0], g[1], b[1]);
+      y.y = ln_pair(w[j].y, rs[j], g[2], b[2], g[3], b[3]);
+      y.z = ln_pair(w[j].z, rs[j], g[4], b[4], g[5], b[5]);
+      y.w = ln_pair(w[j].w, rs[j], g[6], b[6], g[7], b[7]);
+      *reinterpret_cast<uint4*>((j & 1 ? odd : even) + 1536 * j) = y;
+    }
+  }
+}
+
+// mbar_wait for a thread that has nothing else to do meanwhile: each poll
+// may suspend it for up to a microsecond, until the phase completes, so it
+// takes no issue slots from the warps beside it on its SM sub-partition; a
+// wait that never ends traps after 2^22 polls
+__device__ __forceinline__ void mbar_sleep(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 22)) asm volatile("trap;\n");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity), "r"(1000)
+        : "memory");
+  } while (!done);
 }
 
 // The ring's position as a consumer walks it.
 struct Ring {
-  uint32_t s0, full0, empty0;  // shared addresses: stage 0, the full and empty barriers
-  int stages, stage, prev;     // prev: the stage whose products are still in flight
+  uint32_t s0, ready0, empty0;  // shared addresses: stage 0, the barriers the consumers
+                                // wait on (full, or with LN normalised) and release
+  int stages, stage, prev;      // prev: the stage whose products are still in flight
   uint32_t phase;
 
-  __device__ __forceinline__ void wait_full() const { mbar_wait(full0 + 8 * stage, phase); }
+  // with LN the consumers sleep while they wait, and the normalising
+  // warps beside them get their issue slots
+  template <bool LN>
+  __device__ __forceinline__ void wait_ready() const {
+    if (LN)
+      mbar_sleep(ready0 + 8 * stage, phase);
+    else
+      mbar_wait(ready0 + 8 * stage, phase);
+  }
   // release the stage in flight (its products are done) and make the
   // current one the stage in flight
   __device__ __forceinline__ void release_prev(bool leader) {
@@ -167,34 +211,6 @@ struct Ring {
   }
 };
 
-// One stage of the LN (RS) mainloop. cur holds the stage's normalised A
-// fragments: issue its products, wait for the stage before it (whose
-// fragments are in next) and release that stage, then load and normalise
-// the following stage into next while this stage's products run.
-template <int BN>
-__device__ __forceinline__ void ln_stage(float* acc, uint32_t (&cur)[4][4],
-                                         uint32_t (&next)[4][4], bool more, Ring& ring,
-                                         uint32_t stage_bytes, uint32_t arow, int lane,
-                                         bool leader, const __nv_bfloat162* gb, float2 st0,
-                                         float2 st1) {
-  const uint32_t sa = ring.s0 + ring.stage * stage_bytes;
-  const uint64_t db = smem_desc(sa + A_BYTES, BK * 128, 1024);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) Mma<BN>::rs(acc, cur[kk], db + kk * (16 * 128 >> 4));
-  wgmma_commit();
-  wgmma_wait<1>();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) fence_operand(next[kk][t]);
-  ring.release_prev(leader);
-  if (more) {
-    ring.wait_full();
-    ln_fragments(next, ring.s0 + ring.stage * stage_bytes + arow, lane, gb + BK, st0, st1);
-  }
-}
-
 template <int BN, bool LN>
 __global__ void __launch_bounds__(NT, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_w,
@@ -206,14 +222,15 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
   constexpr int HALF = 64 * BN * 2;             // a consumer's 64 rows of the output tile
   extern __shared__ unsigned char smem_raw[];
   // shared memory: the ring's stages, the output tile, the barriers, then
-  // gamma and beta. Stages and the output tile start on 1024-byte
+  // with LN gamma and beta, and two tiles' row statistics (2 x BM float2).
+  // Stages and the output tile start on 1024-byte
   // boundaries: the 128-byte swizzle repeats every 8 rows of 128 B, and
   // TMA and wgmma both read it from the address.
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
   const uint32_t s0 = raw + pad, out0 = s0 + stages * STAGE;
   const uint32_t full0 = out0 + 2 * HALF, empty0 = full0 + MAX_STAGES * 8,
-                 res0 = empty0 + MAX_STAGES * 8;
+                 normed0 = empty0 + MAX_STAGES * 8, res0 = normed0 + MAX_STAGES * 8;
   __nv_bfloat162* gb =  // (gamma, beta) of each k
       reinterpret_cast<__nv_bfloat162*>(smem_raw + pad + stages * STAGE + 2 * HALF + BAR_BYTES);
 
@@ -221,8 +238,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
   const int tiles = ((M + BM - 1) / BM) * tiles_n;
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(full0 + 8 * s, 1);   // the producer's expect_tx arrival
-      mbar_init(empty0 + 8 * s, 2);  // one arrival per consumer warpgroup
+      mbar_init(full0 + 8 * s, 1);    // the producer's expect_tx arrival
+      mbar_init(empty0 + 8 * s, 2);   // one arrival per consumer warpgroup
+      mbar_init(normed0 + 8 * s, 3);  // one arrival per normalising warp
     }
     mbar_init(res0, 1);  // each consumer's residual rows
     mbar_init(res0 + 8, 1);
@@ -236,9 +254,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
 
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {
-    // producer: one thread issues every TMA load of the ring
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 256) {
+    // without LN the producer gives its registers to the consumers; with
+    // LN its normalising warps keep the block's 168 a thread (ptxas holds
+    // the consumers' code to that count either way)
+    if (!LN) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int t = threadIdx.x - 256;
+    if (t == 0) {
+      // producer: one thread issues every TMA load of the ring
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -257,10 +279,51 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
           }
         }
       }
+    } else if (LN && t >= 32) {
+      // normaliser: the other three warps. Thread u takes chunk u % 8 (8
+      // columns) of rows u / 8 + 12 j of each A stage, so a quarter-warp
+      // reads and writes one row's 8 chunks, which the swizzle puts in
+      // distinct banks, and the chunk's gamma and beta are read once a
+      // stage. Each tile's row statistics are staged in shared memory, so
+      // that no load in the loop waits on L1 or L2; two buffers, since a
+      // warp may start a tile while another still reads the last one's
+      const int u = t - 32, c = u & 7, r0 = u >> 3;
+      const int even = r0 * 128 + ((c ^ (r0 & 7)) << 4), odd = r0 * 128 + ((c ^ (r0 & 7) ^ 4) << 4);
+      float2* const st_tiles = reinterpret_cast<float2*>(gb + KT * BK);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x, parity = 0; tile < tiles; tile += gridDim.x, parity ^= 1) {
+        float2* const st = st_tiles + parity * BM;
+        const int m0 = (tile / tiles_n) * BM;
+        st[u] = m0 + u < M ? stats[m0 + u] : make_float2(0.f, 0.f);
+        if (u + 96 < BM) st[u + 96] = m0 + u + 96 < M ? stats[m0 + u + 96] : make_float2(0.f, 0.f);
+        bar_sync<96>(3);  // the tile's statistics are in; the tile before the last is done
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(full0 + 8 * stage, phase);
+          const uint4 lo = *reinterpret_cast<const uint4*>(gb + kt * BK + 8 * c);
+          const uint4 hi = *reinterpret_cast<const uint4*>(gb + kt * BK + 8 * c + 4);
+          const uint32_t gbw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+          float g[8], b[8];  // (gamma, beta) pairs in bf16: gamma low, beta high
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            g[e] = __uint_as_float(gbw[e] << 16);
+            b[e] = __uint_as_float(gbw[e] & 0xffff0000u);
+          }
+          unsigned char* const a = smem_raw + pad + stage * STAGE;
+          ln_chunk_rows(a + even, a + odd, r0 < 8, st + r0, g, b);
+          fence_proxy_async();  // the consumers' wgmma reads the stage through the async proxy
+          __syncwarp();
+          if ((t & 31) == 0) mbar_arrive(normed0 + 8 * stage);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
     }
   } else {
     // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if (!LN) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, q = lane & 3;
     const bool leader = tid == 0;
@@ -269,7 +332,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
     // stores below hit 32 distinct banks
     const uint32_t half = out0 + wg * HALF, res_bar = res0 + 8 * wg;
     uint32_t res_phase = 0;
-    Ring ring{s0, full0, empty0, stages, 0, -1, 0};
+    Ring ring{s0, LN ? normed0 : full0, empty0, stages, 0, -1, 0};
     float acc[BN / 2];
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
@@ -288,38 +351,18 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
         acc[i] = 0.f;
         fence_operand(acc[i]);
       }
-      if constexpr (LN) {
-        // two sets of A fragments: one feeds the products in flight while
-        // the next stage is normalised into the other
-        float2 st0 = make_float2(0.f, 0.f), st1 = make_float2(0.f, 0.f);
-        if (row0 < M) st0 = stats[row0];
-        if (row0 + 8 < M) st1 = stats[row0 + 8];
-        const uint32_t arow = (wg * 64 + warp * 16 + (lane & 15)) * 128;
-        const __nv_bfloat162* gq = gb + 2 * q;  // this thread's k pairs: 2q, 2q + 1 (+ 8)
-        uint32_t a0[4][4], a1[4][4];
-        ring.wait_full();
-        ln_fragments(a0, ring.s0 + ring.stage * STAGE + arow, lane, gq, st0, st1);
-        for (int kt = 0; kt < KT; kt += 2) {
-          ln_stage<BN>(acc, a0, a1, kt + 1 < KT, ring, STAGE, arow, lane, leader,
-                       gq + kt * BK, st0, st1);
-          if (kt + 1 < KT)
-            ln_stage<BN>(acc, a1, a0, kt + 2 < KT, ring, STAGE, arow, lane, leader,
-                         gq + (kt + 1) * BK, st0, st1);
-        }
-      } else {
-        for (int kt = 0; kt < KT; ++kt) {
-          const uint32_t sa = s0 + ring.stage * STAGE;
-          ring.wait_full();
-          const uint64_t da = smem_desc(sa + wg * 64 * 128, 16, 1024);
-          const uint64_t db = smem_desc(sa + A_BYTES, BK * 128, 1024);
-          wgmma_fence();
+      for (int kt = 0; kt < KT; ++kt) {
+        const uint32_t sa = s0 + ring.stage * STAGE;
+        ring.wait_ready<LN>();
+        const uint64_t da = smem_desc(sa + wg * 64 * 128, 16, 1024);
+        const uint64_t db = smem_desc(sa + A_BYTES, BK * 128, 1024);
+        wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            Mma<BN>::ss(acc, da + kk * (32 >> 4), db + kk * (16 * 128 >> 4));
-          wgmma_commit();
-          wgmma_wait<1>();  // the previous stage's products are done
-          ring.release_prev(leader);
-        }
+        for (int kk = 0; kk < 4; ++kk)
+          Mma<BN>::ss(acc, da + kk * (32 >> 4), db + kk * (16 * 128 >> 4));
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        ring.release_prev(leader);
       }
       // the last stage's products
       wgmma_wait<0>();
@@ -408,16 +451,21 @@ int make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_row
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the widest tile that wastes at most 1/32 of N's columns, else the one
-// that wastes the fewest (the widest on a tie). With LN, tiles are at most
-// 192 wide: at 256 the accumulators, two sets of A fragments and the
-// normalising do not fit the consumers' 240 registers, ptxas serialises
-// the wgmmas, and the kernel runs slower
+// Without LN, the widest tile that wastes at most 1/32 of N's columns,
+// else the one that wastes the fewest (the widest on a tie). With LN each
+// tile normalises its A stages anew, and that sets the pace at every
+// width, so the fewest tiles across N win, wasted columns or not: the
+// narrowest width that gives as few as 256 does.
 int pick_bn(int N, bool ln) {
   const int widths[3] = {256, 192, 128};
+  if (ln) {
+    int best = 256;
+    for (int bn : widths)
+      if ((N + bn - 1) / bn == (N + 255) / 256) best = bn;
+    return best;
+  }
   int best = 128, waste = 1 << 30;
   for (int bn : widths) {
-    if (ln && bn > 192) continue;
     const int w = (bn - N % bn) % bn;
     if (32 * w <= N) return bn;
     if (w < waste) best = bn, waste = w;
@@ -435,7 +483,7 @@ int run(const CUtensorMap& ta, const CUtensorMap& tw, const bf16* g, const bf16*
   if (int e = make_map(&to, out, M, N, 64)) return e;
   if (int e = make_map(&tr, epi.res ? static_cast<const void*>(epi.res) : out, M, N, 64))
     return e;
-  const int extra = 1024 + BM * BN * 2 + BAR_BYTES + (LN ? (K + BK - 1) / BK * BK * 4 : 0);
+  const int extra = 1024 + BM * BN * 2 + BAR_BYTES + (LN ? (K + BK - 1) / BK * BK * 4 + 2 * BM * 8 : 0);
   int stages = (SMEM_LIMIT - extra) / STAGE;
   if (stages > MAX_STAGES) stages = MAX_STAGES;
   if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
@@ -468,10 +516,8 @@ int launch(const bf16* a, const bf16* g, const bf16* b, float2* stats, const bf1
   if (int e = make_map(&tw, w, K, N, BK)) return e;
   const int bn = pick_bn(N, LN);
   if (bn == 128) return run<128, LN>(ta, tw, g, b, stats, out, M, N, K, epi, stream);
-  if constexpr (!LN) {
-    if (bn == 256) return run<256, LN>(ta, tw, g, b, stats, out, M, N, K, epi, stream);
-  }
-  return run<192, LN>(ta, tw, g, b, stats, out, M, N, K, epi, stream);
+  if (bn == 192) return run<192, LN>(ta, tw, g, b, stats, out, M, N, K, epi, stream);
+  return run<256, LN>(ta, tw, g, b, stats, out, M, N, K, epi, stream);
 }
 
 }  // namespace

@@ -263,9 +263,9 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 
 // D(64 x N, fp32) (+)= A(64 x 16) B(16 x N), bf16 operands; B MN-major
 // when TB is 1, K-major when it is 0; scale_d 0 overwrites D. ss (N = 16,
-// 32, 128, 192, 256): A from shared memory (K-major); rs: A from registers, each
-// thread's four words laid out as the m16n8k16 MMA's A fragment of its
-// warp's 16 rows. The
+// 32, 128, 192, 256): A from shared memory (K-major); rs (N = 16, 32, 80): A
+// from registers, each thread's four words laid out as the m16n8k16 MMA's A
+// fragment of its warp's 16 rows. The
 // accumulator layout: d[4j + t] holds row g (t < 2) or g + 8 (t >= 2) of
 // the warp's 16, column 8j + 2q + (t & 1), g = lane / 4, q = lane % 4.
 template <int N, int TB = 1>
@@ -346,18 +346,6 @@ template <int TB> struct Mma<128, TB> {
         : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
         : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
   }
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int scale_d = 1) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
-  }
 };
 
 template <int TB> struct Mma<192, TB> {
@@ -374,20 +362,6 @@ template <int TB> struct Mma<192, TB> {
         "%96, %97, p, 1, 1, 0, %99;\n}\n"
         : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80), D8(88)
         : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
-  }
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int scale_d = 1) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-        "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
-        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80), D8(88)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
 
@@ -407,22 +381,6 @@ template <int TB> struct Mma<256, TB> {
         "%128, %129, p, 1, 1, 0, %131;\n}\n"
         : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
         : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
-  }
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int scale_d = 1) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
-        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
 

@@ -44,7 +44,9 @@ def _assert_close(got, want, tol):
 # Shapes at the GEMM tiles' edges: M not a multiple of the 128-row tile,
 # K not a multiple of the 64-deep stage (200, 1160), N of 8, 136 and 1160
 # (ragged against every tile width), and the main path's widths (1152 with
-# 192-wide tiles, 2304, 3840 and 4352 with 256-wide ones) at B = 2 x SP 736.
+# 192-wide tiles without LN and 256-wide with it, 2304, 3840 and 4352 with
+# 256-wide ones either way) at B = 2 x SP 736. With LN, N = 136 and 384
+# take 192-wide tiles and N = 8 128-wide ones.
 GEMM_MAIN_N = [(2, 736, 1152, n) for n in (1152, 2304, 3840, 4352)]
 
 
@@ -63,10 +65,12 @@ def test_ln_matmul_kernel(gen, b, sp, k, n, act):
     _assert_close(got, fused.ln_matmul_plain(x, g, be, w, bias, act=act), 0.05)
 
 
+# "inside_a_tile": N = 1008 takes 256-wide tiles (16 columns wasted), and
+# the key section [336, 672) starts and ends inside one
 @pytest.mark.parametrize(
     "b,sp,n_valid,h,c,d,k",
-    [(2, 48, 37, 4, 24, 16, 64), (2, 736, 729, 16, 80, 72, 1152)],
-    ids=["small", "so400m"],
+    [(2, 48, 37, 4, 24, 16, 64), (2, 736, 729, 16, 80, 72, 1152), (2, 100, 90, 4, 84, 72, 1152)],
+    ids=["small", "so400m", "inside_a_tile"],
 )
 def test_ln_matmul_kernel_key_mask(gen, b, sp, n_valid, h, c, d, k):
     x, g, be = _rn(gen, b, sp, k), _rn(gen, k, mean=1.0, std=0.1), _rn(gen, k)
@@ -77,6 +81,62 @@ def test_ln_matmul_kernel_key_mask(gen, b, sp, n_valid, h, c, d, k):
     want = fused.ln_matmul_plain(x, g, be, w, bias, k_mask=km)
     assert torch.equal(got[:, n_valid:, h * c : 2 * h * c], want[:, n_valid:, h * c : 2 * h * c])
     _assert_close(got, want, 0.05)
+
+
+# The LN kernel's normalised stages at 256-wide tiles (N = 512, 768, 2304,
+# 3840): K of one 64-deep stage, and K = 200 and 1160, whose last stage the
+# normaliser must leave zero past K; ragged M (40, 231, 300, 129 rows);
+# then the model-parallel shards' widths, QKV 1920 and fc1 2176, which
+# take 256-wide tiles too (the fewest tiles; the last one part empty).
+@pytest.mark.parametrize(
+    "b,sp,k,n",
+    [(1, 40, 64, 512), (3, 77, 200, 768), (1, 300, 1160, 2304), (1, 129, 1152, 3840),
+     (2, 736, 1152, 1920), (1, 300, 1152, 2176)],
+)
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_ln_matmul_kernel_normalised_stages(gen, b, sp, k, n, act):
+    x, g, be = _rn(gen, b, sp, k, mean=0.5), _rn(gen, k, std=0.1, mean=1.0), _rn(gen, k, std=0.1)
+    w, bias = _rn(gen, k, n, std=k**-0.5), _rn(gen, n, std=0.1)
+    _assert_close(fused.ln_matmul(x, g, be, w, bias, act=act),
+                  fused.ln_matmul_plain(x, g, be, w, bias, act=act), 0.05)
+
+
+def _bf16_step(v):
+    """The distance between neighbouring bf16 values at |v| (8 significant bits)."""
+    _, e = torch.frexp(v)
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+# The rounding points at the main widths (QKV with its key mask, the MAP
+# head's k|v, fc1 with gelu): against an exact emulation, the fp32
+# LayerNorm rounded once to bf16 (the plain version's), its product with w
+# and the bias in float64, the gelu in float64. The kernel's output is that
+# rounded once to bf16 but for its fp32 sums (about 1e-5 here) and rare
+# LN values that its own fp32 statistics round to the neighbouring bf16
+# (about 1e-4 an output of their row, 1e-3 at most): so every output lies
+# within two bf16 steps + 2^-8 of the emulation, and at least 95% of them
+# round to the same bf16. An LN rounded elsewhere (gamma folded into w,
+# the normalised x rounded before gamma and beta, or not rounded) moves
+# outputs by up to 1e-2 and rounds about half of them elsewhere (the
+# plain versions' arithmetic on the CPU: 0.44-0.58 the same; 0.997 with
+# every row's 1/sigma 2 ulps off).
+@pytest.mark.parametrize("n,act,k_mask", [(3840, None, (729, 16, 80, 72)), (2304, None, None),
+                                          (4352, "gelu", None)], ids=["qkv", "map_kv", "fc1"])
+def test_ln_matmul_kernel_rounds_where_the_reference_does(gen, n, act, k_mask):
+    b, sp, k = 2, 736, 1152
+    x, g, be = _rn(gen, b, sp, k), _rn(gen, k, std=0.1, mean=1.0), _rn(gen, k, std=0.1)
+    w, bias = _rn(gen, k, n, std=k**-0.5), _rn(gen, n, std=0.1)
+    got = fused.ln_matmul(x, g, be, w, bias, act=act, k_mask=k_mask).double()
+    want = fused._ln_plain(x, g, be).double() @ w.double() + bias.double()
+    if act == "gelu":
+        want = torch.nn.functional.gelu(want, approximate="tanh")
+    if k_mask is not None:
+        want = fused._k_mask_plain(want, k_mask)
+    err = (got - want).abs()
+    worst = float((err - 2 * _bf16_step(want)).max())
+    same = float((got == want.to(torch.bfloat16).double()).double().mean())
+    assert worst <= 2**-8, f"an output {worst:.3g} past two bf16 steps of the emulation"
+    assert same >= 0.95, f"only {same:.4f} of the outputs round as the emulation's"
 
 
 @pytest.mark.parametrize(
