@@ -19,7 +19,8 @@ about 1,100 s). ``python3 chip_smoke.py --train-scrape`` runs the
 ``train_scrape``), ``python3 chip_smoke.py --quality`` the ``quality``
 phase alone (see ``quality_only``), ``python3 chip_smoke.py --routes`` the
 ``text_routes`` and ``model_parallel`` phases and the ``flash_mha`` check
-alone (see ``routes_only``).
+alone (see ``routes_only``), ``python3 chip_smoke.py --naflex`` the
+``naflex`` phase alone (see ``naflex_only``).
 
 Phases, in order; any failure exits non-zero with no result line:
 
@@ -142,6 +143,10 @@ Phases, in order; any failure exits non-zero with no result line:
      duplicates flagged and no others and the queue app over HTTP, then 30
      SAE steps on the service's 1e5 library (64 rows card against CPU, one
      step traced by ``utils/profiling.trace``) and feature exemplars.
+   - SigLIP 2 SO400M/16 NaFlex (``naflex_serve``): the clip server's
+     ``build_engine`` by ``model_name``, eight pictures of eight aspect
+     ratios through ``make_app`` and ``InProcessEmbedder``, each against
+     ``embed_image_list`` of the picture alone at its grid (cos 0.999).
    - Quantizers, at the deployment size of docs/scale1m_report.json
      (N = 1e6, d = 1152): the port's ``tools/quantizer_bench`` trains OPQ
      64x256 on a 50k sample with 64 queries, encodes the corpus and
@@ -190,7 +195,8 @@ Phases, in order; any failure exits non-zero with no result line:
 5. One JSON line with every kernel's numbers, one with the quantizer
    path's, one with the service's, one with the disk deployment's, one
    with the ``train``, ``sharded_search`` and ``scrape`` phases', one with
-   the ``quality`` phase's, one with the ``text_routes``, ``model_parallel``
+   the ``quality`` phase's, one with the ``naflex`` phase's, one with the
+   ``text_routes``, ``model_parallel``
    and ``flash_mha`` results, then
    the card's name and power limit, then ``{"ok": true, "device": {...}}`` as
    the last line.
@@ -2901,6 +2907,39 @@ def gemm_cases(cfg, wt, x, attn_out) -> dict:
     }
 
 
+def naflex_gemm_cases(cfg, wt, x, lens) -> dict:
+    """Kernel 1 at the NaFlex tower's shapes, x (B, 1024, 1152): the packed
+    fat QKV with each sequence's own key mask (``lens``, an int32 (B,)
+    tensor) and LN + fc1 + gelu. As :func:`gemm_cases`' rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from meme_search_engine_tpu_torch.ops import attention, fused
+
+    d, h, dh = cfg.width, cfg.num_heads, cfg.head_dim
+    m, nq, mp = x.shape[0] * x.shape[1], wt["wqkv"].shape[1], wt["w1"].shape[1]
+    g1, be1, x2, el = wt["g1"], wt["be1"], x.reshape(-1, d), 2
+    kmask = (lens, h, attention.fat_width(dh), dh)
+
+    def ln():
+        return F.layer_norm(x2, (d,), g1, be1, 1e-6)
+
+    return {
+        "ln_matmul[naflex_qkv]": (
+            lambda: fused.ln_matmul(x, g1, be1, wt["wqkv"], wt["bqkv"], k_mask=kmask),
+            lambda: fused.ln_matmul_plain(x, g1, be1, wt["wqkv"], wt["bqkv"], k_mask=kmask),
+            lambda: torch.addmm(wt["bqkv"], ln(), wt["wqkv"]),
+            2.0 * m * d * nq, el * (m * d + d * nq + m * nq + 2 * d + nq), CHECK_TOL, None,
+        ),
+        "ln_mlp_residual[naflex_fc1]": (
+            lambda: fused.ln_matmul(x, g1, be1, wt["w1"], wt["b1"], act="gelu"),
+            lambda: fused.ln_matmul_plain(x, g1, be1, wt["w1"], wt["b1"], act="gelu"),
+            lambda: F.gelu(torch.addmm(wt["b1"], ln(), wt["w1"]), approximate="tanh"),
+            2.0 * m * d * mp, el * (m * d + d * mp + m * mp + 2 * d + mp), CHECK_TOL, None,
+        ),
+    }
+
+
 def ln_copy_routes(cfg, wt, x) -> dict:
     """The LN GEMMs' other route, timed and run by no path: the LayerNorm
     written out first (``F.layer_norm`` into a bf16 copy that the GEMM
@@ -2967,8 +3006,10 @@ def gemm_bench(root: str) -> int:
     for each instantiation, then the image tower's GEMM launches
     (``gemm_cases``) checked against their plain versions at B = 2 and 128
     and timed at B = 128 beside the library call and the bound, the LN
-    GEMMs' normalised-copy routes (``ln_copy_routes``) and kernels 1, 2
-    and 3 at the text routes' shapes (``text_kernel_cases``, 128 texts);
+    GEMMs' normalised-copy routes (``ln_copy_routes``), kernel 1 at the
+    NaFlex tower's shapes where the package has it (``naflex_gemm_cases``)
+    and kernels 1, 2 and 3 at the text routes' shapes
+    (``text_kernel_cases``, 128 texts);
     one JSON line, then the card's name and power limit. For an A/B in
     one call: parent, change, change, parent."""
     import torch
@@ -2996,6 +3037,20 @@ def gemm_bench(root: str) -> int:
                 out[name] = {"max_abs_err": err, **timed_row(name, b, kern, plain, lib, flops, nbytes)}
     out["normalised_copy_route_ms"] = ln_copy_routes(cfg, wt, x)
     del x, ao, kern, plain, lib
+    if "max_num_patches" in siglip.SigLIPConfig.__dataclass_fields__:
+        # the NaFlex tower's LN GEMMs: 1024-row sequences, a key mask a sequence
+        nf = siglip.SO400M_16_NAFLEX_1024
+        for b in (B_CHECK, B_TIME):
+            x = rn(b, nf.max_num_patches, nf.width)
+            lens = torch.randint(960, nf.max_num_patches + 1, (b,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            for name, (kern, plain, lib, flops, nbytes, tol, rows) in naflex_gemm_cases(
+                    nf, wt, x, lens).items():
+                err = check_kernel(name, b, kern, plain, tol, rows)
+                if b == B_TIME:
+                    out[name] = {"max_abs_err": err,
+                                 **timed_row(name, b, kern, plain, lib, flops, nbytes)}
+        del x, kern, plain, lib
     for name, (kern, plain, lib, flops, nbytes, exp_ops, tol, rows) in text_kernel_cases(cfg, rn, B_TIME).items():
         if name.startswith("fat_vit_mha"):
             continue
@@ -3316,6 +3371,96 @@ def check_counts(kind, counts, per_bucket, n_buckets):
         if counts[k] != n * n_buckets:
             fail(f"{k} launched {counts[k]} times on the {kind} path, "
                  f"expected {n * n_buckets}")
+
+
+def naflex_serve(launch_counts, reset_counts) -> dict:
+    """SigLIP 2 SO400M/16 NaFlex at 1024 patches as users serve it: the
+    clip server's ``build_engine`` by ``model_name``
+    ("siglip2-so400m/16-naflex", random weights from seed 0), eight PNG
+    pictures of eight aspect ratios (wide, tall, larger than the cap, a
+    small one the decode enlarges) posted to ``make_app`` and sent through
+    ``InProcessEmbedder``, each embedding against ``embed_image_list`` of
+    that picture alone at its own grid (cos >= 0.999); ``/config`` must
+    name the grid rule's numbers, no square; the fat attention and kernel
+    1 launched as on the 384 px path, once a bucket. Returns the ``naflex`` JSON object."""
+    import asyncio
+    import io
+
+    import msgpack
+    import torch
+    from aiohttp.test_utils import TestClient, TestServer
+    from PIL import Image
+
+    from meme_search_engine_tpu_torch.serving import clip_server, preprocess
+    from meme_search_engine_tpu_torch.serving.client import InProcessEmbedder
+    from meme_search_engine_tpu_torch.utils.fp16 import decode_fp16_buffer
+
+    t_phase = time.perf_counter()
+    engine = clip_server.build_engine({"model_name": "siglip2-so400m/16-naflex", "device": "cuda",
+                                       "max_batch_size": 8})
+    cfg = engine.cfg
+    if (cfg.max_num_patches, cfg.patch_size, cfg.vocab_size) != (1024, 16, 256_000):
+        fail(f"naflex: build_engine gave {cfg}")
+    rng = np.random.default_rng(19)
+    sizes = [(480, 1600), (1600, 480), (700, 700), (2400, 900), (96, 40), (333, 1000),
+             (1200, 1180), (20, 300)]
+    bodies, grids = [], []
+    for h, w in sizes:
+        small = rng.integers(0, 256, (max(h // 16, 2), max(w // 16, 2), 3), dtype=np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(small).resize((w, h), Image.BILINEAR).save(buf, format="PNG")
+        bodies.append(buf.getvalue())
+        grids.append(preprocess.naflex_grid(h, w, 16, 1024))
+    pics = [preprocess.decode_and_resize_naflex(b, 16, 1024) for b in bodies]
+    alone = np.concatenate([engine.embed_image_list([p]) for p in pics])
+
+    def worst_cos(got):
+        return float(np.min(np.sum(got * alone, axis=1)
+                            / np.linalg.norm(got, axis=1) / np.linalg.norm(alone, axis=1)))
+
+    reset_counts()
+    in_process = asyncio.run(InProcessEmbedder(engine).embed_image_bytes(bodies))
+    torch.cuda.synchronize()
+    check_counts("NaFlex in-process", launch_counts(),
+                 {"ln_matmul": cfg.depth + 1, "matmul_residual": cfg.depth,
+                  "ln_mlp_residual": cfg.depth, "fat_vit_mha": cfg.depth}, 1)
+
+    async def drive():
+        client = TestClient(TestServer(clip_server.make_app(engine, {"max_batch_size": 8})))
+        await client.start_server()
+        try:
+            conf = msgpack.unpackb(await (await client.get("/config")).read(), raw=False)
+            resp = await client.post("/", data=msgpack.packb({"images": bodies}))
+            if resp.status != 200:
+                fail(f"naflex: the clip server answered {resp.status}")
+            body = msgpack.unpackb(await resp.read(), raw=False)
+            return conf, np.stack([decode_fp16_buffer(b) for b in body])
+        finally:
+            await client.close()
+
+    conf, served = asyncio.run(drive())
+    if conf.get("image_size") is not None or (conf.get("patch_size"), conf.get("max_num_patches")) != (16, 1024):
+        fail(f"naflex: /config {conf}")
+    out = {"grids": grids, "cos_in_process": worst_cos(in_process), "cos_served": worst_cos(served),
+           "phase_s": time.perf_counter() - t_phase}
+    if min(out["cos_in_process"], out["cos_served"]) < 0.999:
+        fail(f"naflex: a picture's embedding in a batch is not its own: {out}")
+    log(f"naflex: grids {grids}; worst cos in process {out['cos_in_process']:.6f}, "
+        f"through the clip server {out['cos_served']:.6f}; {out['phase_s']:.1f} s")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def naflex_only() -> int:
+    """``python3 chip_smoke.py --naflex``: the ``naflex`` phase alone after
+    the kernels' build; one JSON line, then the card's name and power
+    limit."""
+    smi, _, _, engine, launch_counts, reset_counts = _alone()
+    del engine
+    print(json.dumps({"naflex": naflex_serve(launch_counts, reset_counts)}), flush=True)
+    print(smi, flush=True)
+    return 0
 
 
 def _alone():
@@ -4003,6 +4148,9 @@ def main(disk_n: int = DISK_N) -> int:
     # widths; the crawl is embedded by the same engine
     qual = quality(engine, dev, launch_counts, reset_counts, check_counts)
 
+    # SigLIP 2 NaFlex through the clip server and the in-process embedder
+    naflex = naflex_serve(launch_counts, reset_counts)
+
     # quantizers at the deployment size of docs/scale1m_report.json, through
     # the port's tool as a user runs it; the training and encoding stages
     # are timed by wrapping the functions the tool calls
@@ -4212,6 +4360,7 @@ def main(disk_n: int = DISK_N) -> int:
     print(json.dumps({"disk": dk}), flush=True)
     print(json.dumps(train_paths), flush=True)
     print(json.dumps({"quality": qual}), flush=True)
+    print(json.dumps({"naflex": naflex}), flush=True)
     print(json.dumps({"text_routes": routes, "model_parallel": mp, "flash_mha": flash}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4238,6 +4387,8 @@ if __name__ == "__main__":
         sys.exit(quality_only())
     if sys.argv[1:2] == ["--routes"]:
         sys.exit(routes_only())
+    if sys.argv[1:2] == ["--naflex"]:
+        sys.exit(naflex_only())
     if sys.argv[1:2] == ["--disk-n"]:
         sys.exit(main(disk_n=int(sys.argv[2])))
     sys.exit(main())

@@ -212,7 +212,6 @@ class IngestService:
         if want_thumbs and thumb_dir:
             os.makedirs(thumb_dir, exist_ok=True)
 
-        image_size = self.embedder.config.image_size
         batch_size = self.embedder.config.batch
         embed_sem = asyncio.Semaphore(3)  # 3 batches in flight (main.rs:680)
         pending: List[Tuple[bytes, np.ndarray]] = []
@@ -239,7 +238,7 @@ class IngestService:
                     count("errors", "embed")
                     print(f"embed batch failed: {e}")
 
-        from .preprocess_shim import resize_for_embed
+        from .preprocess_shim import prepare_for_embed
 
         for rel, mtime in sorted(mtimes.items()):
             mtime_us = int(mtime * 1_000_000)
@@ -270,7 +269,7 @@ class IngestService:
                         fn_enc, mtime_us, want_ocr=False, want_thumbs=False
                     )
                 if record.needs_embed:
-                    arr = resize_for_embed(np.asarray(img), image_size)
+                    arr = prepare_for_embed(np.asarray(img), self.embedder.config)
                     pending.append((fn_enc, arr))
                     if len(pending) >= batch_size:
                         flushes.append(

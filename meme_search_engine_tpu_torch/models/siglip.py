@@ -38,11 +38,23 @@ Everything else (resize, patch embedding, dense layers, LayerNorm, MLP,
 probe attention, L2 norm) is plain torch, as it is XLA in the reference.
 On the card the dense layers are bf16 GEMMs with fp32 accumulation.
 
+SigLIP 2's NaFlex image towers (``max_num_patches`` > 0; the published
+google/siglip2-so400m-patch16-naflex is ``SO400M_16_NAFLEX_1024`` at 1024
+patches) run the same fat-layout encoder over pictures at their own
+aspect ratios: each picture's patches in row-major grid order, padded to
+``max_num_patches`` rows; the patch embedding is a Linear over each
+16 x 16 patch flattened as (row, col, channel); the learned 16 x 16
+position table is resized to each picture's grid as the published model
+does (bilinear, :func:`naflex_position_weights`) and enters the patch
+embedding's GEMM as 256 more input features; every attention and the MAP
+head mask each picture's pad keys by its own valid length (kernel 1's
+per-sequence key mask). The text tower is SigLIP's.
+
 Parameters are random-init (``init_params``), converted from the JAX
 package's tree (``models/convert.py``) or loaded from a HuggingFace
-checkpoint (``load_hf_siglip``). ``prepare_params`` replaces the image
-tower's leaves with the kernel layouts once at load time, and pads the
-text tower's MLP for the kernels.
+checkpoint (``load_hf_siglip``; SigLIP 2's ``load_hf_siglip2``).
+``prepare_params`` replaces the image tower's leaves with the kernel
+layouts once at load time, and pads the text tower's MLP for the kernels.
 
 Model parallelism in one process (``serving/engine.py``): where a tree
 holds a *list* of shards in place of ``blocks`` (and of the image tower's
@@ -69,6 +81,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import fat_layout_ok, fat_vit_mha_packed, fat_width, fused_mha, mha, mha_xla
 from ..ops.fused import ln_matmul, ln_mlp_residual, matmul_residual, pad_hidden
+from ..utils import profiling
 from .safetensors_io import read_safetensors
 
 Params = Dict[str, Any]
@@ -76,7 +89,9 @@ Params = Dict[str, Any]
 __all__ = [
     "SigLIPConfig",
     "SO400M_14_384",
+    "SO400M_16_NAFLEX_1024",
     "tiny_test_config",
+    "tiny_naflex_test_config",
     "tiny_fat_test_config",
     "init_params",
     "prepare_params",
@@ -86,6 +101,9 @@ __all__ = [
     "siglip_loss",
     "ZERO_GRAD_LEAVES",
     "load_hf_siglip",
+    "load_hf_siglip2",
+    "naflex_position_weights",
+    "naflex_patchify",
     "param_count",
 ]
 
@@ -109,10 +127,15 @@ class SigLIPConfig:
     # image-tower route: "xla" runs the plain encoder and MAP head; any
     # other value ("auto", "fat_interpret") the fat-layout kernels
     attn_impl: str = "auto"
+    # SigLIP 2 NaFlex: the sequence cap (0: fixed resolution). The
+    # position table is then (image_size // patch_size)^2 rows, resized to
+    # each picture's grid
+    max_num_patches: int = 0
 
     @property
     def num_patches(self) -> int:
-        return (self.image_size // self.patch_size) ** 2  # 729
+        """Rows of the position table (729 at SO400M/14@384, 256 at NaFlex)."""
+        return (self.image_size // self.patch_size) ** 2
 
     @property
     def head_dim(self) -> int:
@@ -120,6 +143,12 @@ class SigLIPConfig:
 
 
 SO400M_14_384 = SigLIPConfig()
+
+# google/siglip2-so400m-patch16-naflex at max_num_patches 1024: the same
+# widths, a Linear patch embedding of 16 x 16 x 3, a 16 x 16 position
+# table, the Gemma vocabulary
+SO400M_16_NAFLEX_1024 = SigLIPConfig(image_size=256, patch_size=16, vocab_size=256_000,
+                                     max_num_patches=1024)
 
 
 def tiny_test_config() -> SigLIPConfig:
@@ -129,6 +158,13 @@ def tiny_test_config() -> SigLIPConfig:
         num_heads=4, text_width=64, text_depth=2, text_mlp_dim=128,
         text_num_heads=4, vocab_size=128, text_len=16, d_emb=64,
     )
+
+
+def tiny_naflex_test_config(max_num_patches: int = 64) -> SigLIPConfig:
+    """The tiny geometry as a NaFlex tower: patch 4, a 4 x 4 position
+    table, ``max_num_patches`` rows a picture."""
+    return dataclasses.replace(tiny_test_config(), image_size=16, patch_size=4,
+                               max_num_patches=max_num_patches)
 
 
 def tiny_fat_test_config(attn_impl: str = "fat_interpret") -> SigLIPConfig:
@@ -335,9 +371,16 @@ def _prepare_image(img: Params, cfg: SigLIPConfig) -> Params:
         "ln": mh["ln"],
         "mlp": mh["mlp"],
     }
+    if cfg.max_num_patches:
+        # NaFlex: the position table rides the patch embedding's GEMM as
+        # num_patches more input rows (naflex_position_weights)
+        pe = img["patch_embed"]
+        embed = {"patch_pos": {"w": torch.cat([pe["w"], img["pos_emb"].to(pe["w"].dtype)]).contiguous(),
+                               "b": pe["b"]}}
+    else:
+        embed = {"patch_embed": img["patch_embed"], "pos_emb": img["pos_emb"]}
     return {
-        "patch_embed": img["patch_embed"],
-        "pos_emb": img["pos_emb"],
+        **embed,
         "blocks": prepared_blocks,
         "ln_final": img["ln_final"],
         "map_head": map_head,
@@ -511,9 +554,10 @@ def _map_head(x: torch.Tensor, p, num_heads: int, attention=mha) -> torch.Tensor
 
 
 def _encoder_fat(
-    x: torch.Tensor, blocks, num_heads: int, n_valid: int
+    x: torch.Tensor, blocks, num_heads: int, n_valid
 ) -> torch.Tensor:
-    """Padded-sequence encoder over (B, SP, D), rows >= n_valid padding;
+    """Padded-sequence encoder over (B, SP, D), rows >= n_valid padding
+    (an int, or an int32 (B,) tensor of each sequence's own on x's device);
     ``blocks`` in the layout of :func:`prepare_params` (or a list of
     model-parallel shards in it, each its own heads' fat QKV, its rows of
     o and its hidden slice).
@@ -529,9 +573,10 @@ def _encoder_fat(
 
     def attend(p, x, acc, i):
         heads = p["qkv"]["w"].shape[-1] // (3 * c)
+        lens = n_valid.to(x.device) if isinstance(n_valid, torch.Tensor) else n_valid
         qkvf = ln_matmul(
             x, p["ln1"]["g"][i], p["ln1"]["b"][i], p["qkv"]["w"][i], p["qkv"]["b"][i],
-            k_mask=(n_valid, heads, c, dh),
+            k_mask=(lens, heads, c, dh),
         )
         attn = fat_vit_mha_packed(qkvf, heads, dh)
         del qkvf
@@ -549,12 +594,22 @@ def _encoder_fat(
     return x
 
 
+def _key_mask(n_valid, sp: int, device) -> torch.Tensor:
+    """(1 or B, SP) bool, True at the valid keys: the first ``n_valid``
+    (an int, or a (B,) tensor of each sequence's own)."""
+    keys = torch.arange(sp, device=device)[None, :]
+    if isinstance(n_valid, torch.Tensor):
+        return keys < n_valid.to(device)[:, None]
+    return keys < n_valid
+
+
 def _map_head_fat(
-    x: torch.Tensor, lnf: Params, p, num_heads: int, n_valid: int
+    x: torch.Tensor, lnf: Params, p, num_heads: int, n_valid
 ) -> torch.Tensor:
     """Final LN + MAP pooling head; the LN and the packed k|v projection
     run as one ln_matmul (one a model-parallel shard, over its heads), the
-    probe attention over n_valid keys is plain torch."""
+    probe attention over the n_valid keys (an int, or each sequence's own
+    in a (B,) tensor) is plain torch."""
     b, sp, d = x.shape
     dh = d // num_heads
     shards = _shards(p)
@@ -567,8 +622,8 @@ def _map_head_fat(
         k = kv[:, :, :hd].reshape(b, sp, hd // dh, dh)
         v = kv[:, :, hd:].reshape(b, sp, hd // dh, dh)
         scores = torch.einsum("hd,bkhd->bhk", q.float(), k.float()) * (1.0 / dh**0.5)
-        mask = torch.arange(sp, device=x.device) < n_valid
-        scores = scores.masked_fill(~mask[None, None, :], float("-inf"))
+        mask = _key_mask(n_valid, sp, x.device)
+        scores = scores.masked_fill(~mask[:, None, :], float("-inf"))
         probs = torch.softmax(scores, dim=-1)
         o = torch.einsum(
             "bhk,bkhd->bhd", probs.to(v.dtype).float(), v.float()
@@ -695,6 +750,90 @@ def _patches(p: Params, x: torch.Tensor, cfg: SigLIPConfig) -> torch.Tensor:
     return x + p["pos_emb"][None].to(x.dtype)
 
 
+def _resize_taps(pos: torch.Tensor, n_out: torch.Tensor, n_in: int) -> torch.Tensor:
+    """(..., n_in) fp32 weights that resize n_in samples to n_out (a
+    tensor broadcast against ``pos``) at output positions ``pos``, as
+    ``F.interpolate(mode="bilinear", align_corners=False, antialias=True)``
+    takes them: a triangle of half-width max(n_in / n_out, 1) in source
+    samples around ``(pos + 0.5) * n_in / n_out``, normalised. Upsampling
+    that is plain bilinear (its two neighbours, clamped at the edges)."""
+    scale = n_in / n_out.float()
+    center = (pos.float() + 0.5) * scale
+    support = scale.clamp_min(1.0)
+    j = torch.arange(n_in, device=pos.device, dtype=torch.float32) + 0.5
+    w = (1.0 - ((j - center[..., None]) / support[..., None]).abs()).clamp_min(0.0)
+    return w / w.sum(-1, keepdim=True)
+
+
+def naflex_position_weights(grids: torch.Tensor, rows: int, side: int) -> torch.Tensor:
+    """(B, rows, side^2) fp32: row s of picture b holds the weights that
+    take its position embedding from the side x side table (row i*side+j
+    is the table's (i, j)) resized to the picture's (h, w) grid as the
+    published model resizes it (``F.interpolate(..., mode="bilinear",
+    align_corners=False, antialias=True)``, separable: a product of one
+    weight vector a side). Patch s lies at (s // w, s % w); pad rows
+    (s >= h*w) take the resized table's first row, as the published model
+    pads. ``grids``: (B, 2) integer (h, w), on the device the weights
+    are wanted on. A few launches a bucket, whatever its grids."""
+    h, w = grids[:, :1].long(), grids[:, 1:].long()
+    s = torch.arange(rows, device=grids.device)[None, :]
+    valid = s < h * w
+    y = torch.where(valid, s // w, 0)
+    x = torch.where(valid, s % w, 0)
+    wy = _resize_taps(y, h, side)
+    wx = _resize_taps(x, w, side)
+    return (wy[..., :, None] * wx[..., None, :]).reshape(grids.shape[0], rows, side * side)
+
+
+def naflex_patchify(pixels: torch.Tensor, grids: torch.Tensor, cfg: SigLIPConfig) -> torch.Tensor:
+    """A bucket's pictures as (B, max_num_patches, P*P*3) patches in
+    row-major grid order, each flattened as (row, col, channel), by one
+    gather on the pictures' device. ``pixels``: (B, max_num_patches*P*P*3)
+    uint8, row b picture b's (P h, P w, 3) pixels in C order, zero past
+    them; ``grids``: (B, 2) integer (h, w) in patches on the same device.
+    Pad patches come out zero."""
+    p, rows = cfg.patch_size, cfg.max_num_patches
+    b = pixels.shape[0]
+    chunk = p * 3  # one patch row's bytes: 16 pixels of 3 channels
+    h, w = grids[:, :1].long(), grids[:, 1:].long()
+    k = torch.arange(rows, device=pixels.device)[None, :]
+    py = torch.arange(p, device=pixels.device)
+    # picture b's pixel row P y + py, patch column x is its chunk
+    # (P y + py) w + x; a pad patch k reads chunks P k + py, past the picture
+    inside = ((k // w) * p)[..., None] + py
+    idx = torch.where((k < h * w)[..., None], inside * w[..., None] + (k % w)[..., None],
+                      k[..., None] * p + py)
+    idx = idx + (torch.arange(b, device=pixels.device) * (rows * p))[:, None, None]
+    return pixels.reshape(b * rows * p, chunk).index_select(0, idx.reshape(-1)).reshape(
+        b, rows, p * chunk)
+
+
+def _encode_naflex(p: Params, images: torch.Tensor, grids, cfg: SigLIPConfig,
+                   preprocessed: bool) -> torch.Tensor:
+    """The NaFlex image tower over one bucket, before the L2 norm."""
+    if not _uses_fat_path(cfg):
+        raise ValueError("the NaFlex image tower runs the fat layout; attn_impl='xla' has no key masks")
+    if "patch_pos" not in p:
+        raise ValueError("encode_image needs prepare_params(params, cfg) with the NaFlex cfg first")
+    g = torch.as_tensor(grids).to(images.device, torch.int32)
+    b, rows = images.shape[0], cfg.max_num_patches
+    if tuple(g.shape) != (b, 2):
+        raise ValueError(f"grids: expected ({b}, 2) (h, w) in patches, got {tuple(g.shape)}")
+    with profiling.span("siglip.positions", images=b):
+        side = cfg.image_size // cfg.patch_size
+        pos = naflex_position_weights(g, rows, side).to(cfg.param_dtype)
+    if images.dim() == 2:
+        images = naflex_patchify(images, g, cfg)
+    x = images.to(cfg.param_dtype) if preprocessed else (images.float() / 127.5 - 1.0).to(cfg.param_dtype)
+    x = _dense(torch.cat([x, pos], dim=-1), p["patch_pos"])
+    del pos
+    sp = ((rows + 15) // 16) * 16
+    x = F.pad(x, (0, 0, 0, sp - rows)).contiguous()
+    lens = (g[:, 0] * g[:, 1]).contiguous()
+    x = _encoder_fat(x, p["blocks"], cfg.num_heads, n_valid=lens)
+    return _map_head_fat(x, p["ln_final"], p["map_head"], cfg.num_heads, n_valid=lens)
+
+
 def _normalized(emb: torch.Tensor, normalize: bool) -> torch.Tensor:
     emb = emb.float()
     return emb / torch.linalg.norm(emb, dim=-1, keepdim=True) if normalize else emb
@@ -726,13 +865,26 @@ def encode_image(
     *,
     normalize: bool = True,
     preprocessed: bool = False,
+    grids=None,
 ) -> torch.Tensor:
     """Images -> fp32 embeddings (B, d_emb), L2-normalised by default.
 
     ``images``: uint8 (B,H,W,3), or float (B,R,R,3) in [-1,1] when
     ``preprocessed``. ``params`` must have been through
     :func:`prepare_params` with the same ``cfg``.
+
+    NaFlex (``cfg.max_num_patches``): ``images`` is a bucket's patches,
+    (B, max_num_patches, P*P*3) uint8 (or float in [-1, 1] when
+    ``preprocessed``) in row-major grid order, or its pictures' pixels
+    as :func:`naflex_patchify` takes them, (B, max_num_patches*P*P*3)
+    uint8; ``grids`` (B, 2) their (h, w) in patches, best on the
+    images' device (the engine's staging buffer carries both in one copy,
+    ``serving.engine.naflex_views``).
     """
+    if cfg.max_num_patches:
+        if grids is None:
+            raise ValueError("the NaFlex image tower needs each picture's grid")
+        return _normalized(_encode_naflex(params["img"], images, grids, cfg, preprocessed), normalize)
     x = images.to(cfg.param_dtype) if preprocessed else preprocess_image(images, cfg)
     if not _uses_fat_path(cfg):
         return _embed_image(params, x, cfg, normalize=normalize)
@@ -931,9 +1083,13 @@ def load_hf_siglip(path: str, cfg: SigLIPConfig = SO400M_14_384) -> Params:
     txt_blocks = _stack([_hf_block(tensors, tp, i, dt) for i in range(cfg.text_depth)])
 
     # HF patch conv weight: (width, 3, P, P) -> (P*P*3, width), matching
-    # the (h, w, c) patch flattening order
+    # the (h, w, c) patch flattening order; SigLIP 2's Linear (width,
+    # P*P*3) already flattens patches (row, col, channel)
     wconv = tensors["vision_model.embeddings.patch_embedding.weight"]
-    wmat = wconv.permute(2, 3, 1, 0).reshape(-1, cfg.width)
+    if wconv.dim() == 2:
+        wmat = wconv.t()
+    else:
+        wmat = wconv.permute(2, 3, 1, 0).reshape(-1, cfg.width)
 
     # HF MAP head: probe, in_proj (packed qkv), out_proj, layernorm, mlp
     hp = "vision_model.head"
@@ -977,6 +1133,23 @@ def load_hf_siglip(path: str, cfg: SigLIPConfig = SO400M_14_384) -> Params:
     for key, name in (("t", "logit_scale"), ("b", "logit_bias")):
         if name in tensors:
             params[key] = tensors[name].to(torch.float32).reshape(())
+    return params
+
+
+def load_hf_siglip2(path: str, cfg: SigLIPConfig = SO400M_16_NAFLEX_1024) -> Params:
+    """Load a SigLIP 2 NaFlex checkpoint (google/siglip2-so400m-patch16-naflex
+    safetensors, a file or its directory) into the tree. HF's Siglip2
+    names are SigLIP's but for the patch embedding, a Linear over
+    (row, col, channel)-flattened patches, and the position table, the
+    16 x 16 grid's 256 rows in row-major order; the text tower is SigLIP's
+    with the Gemma vocabulary."""
+    if not cfg.max_num_patches:
+        raise ValueError("load_hf_siglip2 takes a NaFlex config (max_num_patches > 0)")
+    params = load_hf_siglip(path, cfg)
+    want = (cfg.patch_size ** 2 * 3, cfg.width)
+    if tuple(params["img"]["patch_embed"]["w"].shape) != want:
+        raise ValueError(f"patch embedding {tuple(params['img']['patch_embed']['w'].shape)}, "
+                         f"expected a Linear of {want}")
     return params
 
 

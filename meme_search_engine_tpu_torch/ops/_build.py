@@ -44,7 +44,7 @@ c_i64 = ctypes.c_longlong
 
 # C signature of every entry point: (library, function) -> argtypes
 _SIGNATURES = {
-    ("gemm", "mse_ln_matmul"): [c_ptr] * 7 + [c_int] * 9 + [c_ptr],
+    ("gemm", "mse_ln_matmul"): [c_ptr] * 7 + [c_int] * 9 + [c_ptr] * 2,
     ("gemm", "mse_matmul_residual"): [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
     ("fat_attention", "mse_fat_attention"): (
         [c_ptr] * 4 + [c_int] * 5 + [c_i64] * 6 + [c_ptr]

@@ -69,10 +69,19 @@ struct Epilogue {
   const bf16* bias;  // (N,)
   const bf16* res;   // (M, N), matmul_residual only
   int act;           // 0: none, 1: tanh-gelu
-  // packed fat-QKV key mask: rows with (row % sp) >= n_valid get, in
-  // columns [hc, 2hc), 0 everywhere except -1e30 where (col - hc) % c == d.
+  // packed fat-QKV key mask: rows with (row % sp) >= n get, in columns
+  // [hc, 2hc), 0 everywhere except -1e30 where (col - hc) % c == d; n is
+  // lens[row / sp], each sequence's own valid length, or n_valid for every
+  // sequence where lens is null
   int n_valid, sp, hc, c, d;  // c == 0: no mask
+  const int* lens;            // (M / sp,) or null
 };
+
+// whether row r is a pad row of its sequence under the key mask
+__device__ __forceinline__ bool masked_row(const Epilogue& epi, int r, int M) {
+  if (epi.c == 0 || r >= M) return false;
+  return r % epi.sp >= (epi.lens ? __ldg(epi.lens + r / epi.sp) : epi.n_valid);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -397,7 +406,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
       bool pad_row[2];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
-        pad_row[hh] = LN && epi.c > 0 && ((row0 + 8 * hh) % epi.sp) >= epi.n_valid;
+        pad_row[hh] = LN && masked_row(epi, row0 + 8 * hh, M);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -526,11 +535,13 @@ extern "C" {
 
 // out(M,N) = act(LN(x)(M,K) @ w(K,N) + bias) with the optional key mask.
 // Needs K % 8 == 0, N % 8 == 0 and 16-byte aligned, contiguous operands.
-// `stats` is (M,) float2 scratch for the row statistics.
+// `stats` is (M,) float2 scratch for the row statistics. `lens`: null, or
+// the (M / sp,) int32 valid lengths of the sequences, in place of n_valid.
 int mse_ln_matmul(const void* x, const void* g, const void* b, const void* w,
                   const void* bias, void* out, void* stats, int M, int N, int K, int act,
-                  int n_valid, int sp, int hc, int c, int d, void* stream) {
-  Epilogue epi{static_cast<const bf16*>(bias), nullptr, act, n_valid, sp, hc, c, d};
+                  int n_valid, int sp, int hc, int c, int d, const void* lens, void* stream) {
+  Epilogue epi{static_cast<const bf16*>(bias), nullptr, act, n_valid, sp, hc, c, d,
+               static_cast<const int*>(lens)};
   return launch<true>(static_cast<const bf16*>(x), static_cast<const bf16*>(g),
                       static_cast<const bf16*>(b), static_cast<float2*>(stats),
                       static_cast<const bf16*>(w), static_cast<bf16*>(out), M, N, K, epi,
@@ -542,7 +553,7 @@ int mse_matmul_residual(const void* x, const void* w, const void* bias,
                         const void* res, void* out, int M, int N, int K,
                         void* stream) {
   Epilogue epi{static_cast<const bf16*>(bias), static_cast<const bf16*>(res), 0,
-               0, 1, 0, 0, 0};
+               0, 1, 0, 0, 0, nullptr};
   return launch<false>(static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
                        static_cast<const bf16*>(w), static_cast<bf16*>(out), M, N, K,
                        epi, static_cast<cudaStream_t>(stream));

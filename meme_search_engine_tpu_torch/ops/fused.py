@@ -10,7 +10,7 @@ per wrapper; the CPU path never touches it.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -58,12 +58,21 @@ def _ln_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch
     return y.to(torch.bfloat16)
 
 
-def _k_mask_plain(y: torch.Tensor, k_mask: Tuple[int, int, int, int]) -> torch.Tensor:
+# (n_valid, n_heads, c, d): n_valid one int for every sequence, or an int32
+# tensor of each sequence's own valid length
+KMask = Tuple[Union[int, torch.Tensor], int, int, int]
+
+
+def _k_mask_plain(y: torch.Tensor, k_mask: KMask) -> torch.Tensor:
     n_valid, n_heads, c, d = k_mask
     hc = n_heads * c
     const = torch.zeros(hc, dtype=y.dtype, device=y.device)
     const[d::c] = -1e30
-    y[:, n_valid:, hc : 2 * hc] = const
+    if isinstance(n_valid, torch.Tensor):
+        pad = torch.arange(y.shape[1], device=y.device)[None, :] >= n_valid.to(y.device)[:, None]
+        y[..., hc : 2 * hc] = torch.where(pad[..., None], const, y[..., hc : 2 * hc])
+    else:
+        y[:, n_valid:, hc : 2 * hc] = const
     return y
 
 
@@ -159,18 +168,24 @@ def _check_gemm(x, w):
 
 def _ln_matmul_launch(x, gamma, beta, w, bias, act, k_mask, out):
     b, sp, k, n = _check_gemm(x, w)
-    n_valid, hc, c, d = 0, 0, 0, 0
+    n_valid, hc, c, d, lens = 0, 0, 0, 0, None
     if k_mask is not None:
         n_valid, n_heads, c, d = k_mask
         hc = n_heads * c
         if 2 * hc > n or not 0 <= d < c:
             raise ValueError(f"k_mask {k_mask} does not fit N={n}")
+        if isinstance(n_valid, torch.Tensor):
+            lens = n_valid
+            if lens.dtype != torch.int32 or lens.shape != (b,) or lens.device != x.device:
+                raise ValueError(f"k_mask lengths: int32 ({b},) on {x.device}, got "
+                                 f"{lens.dtype} {tuple(lens.shape)} on {lens.device}")
+            lens, n_valid = lens.contiguous(), 0
     stats = torch.empty((b * sp, 2), dtype=torch.float32, device=x.device)
     err = _build.library("gemm").mse_ln_matmul(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
         bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
         b * sp, n, k, 1 if act == "gelu" else 0,
-        n_valid, sp, hc, c, d,
+        n_valid, sp, hc, c, d, None if lens is None else lens.data_ptr(),
         _build.stream_ptr(x.device),
     )
     _build.check(err, "ln_matmul")
@@ -192,7 +207,7 @@ def ln_matmul(
     w: torch.Tensor,
     bias: torch.Tensor,
     act: Optional[str] = None,
-    k_mask: Optional[Tuple[int, int, int, int]] = None,
+    k_mask: Optional[KMask] = None,
 ) -> torch.Tensor:
     """act(LayerNorm(x) @ w + bias): (B, SP, K) x (K, N) -> (B, SP, N) bf16.
 
@@ -200,7 +215,9 @@ def ln_matmul(
     accumulation. ``act``: None or "gelu" (tanh). ``k_mask=(n_valid,
     n_heads, c, d)``: packed fat-QKV mode, rows >= n_valid of the K
     section (columns [H*C, 2*H*C)) become 0 with -1e30 in each head's
-    constant column. Every row is written, pad rows included.
+    constant column. ``n_valid`` is one int for every sequence, or an
+    int32 (B,) tensor on x's device, each sequence's own. Every row is
+    written, pad rows included.
     """
     if act not in (None, "gelu"):
         raise ValueError(f"act must be None or 'gelu', got {act!r}")

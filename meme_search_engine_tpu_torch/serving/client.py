@@ -20,7 +20,7 @@ from typing import List, Sequence
 import numpy as np
 
 from ..utils.fp16 import decode_fp16_buffer
-from .preprocess import decode_and_resize
+from .preprocess import decode_and_resize, decode_and_resize_naflex
 from .wire import InferenceServerConfig
 
 __all__ = ["RemoteEmbedder", "InProcessEmbedder"]
@@ -85,15 +85,22 @@ class RemoteEmbedder:
 
 
 class InProcessEmbedder:
-    """Direct engine calls; fp16 round-trip retained for wire parity."""
+    """Direct engine calls; fp16 round-trip retained for wire parity. A
+    SigLIP 2 NaFlex engine takes each picture at its own grid
+    (``preprocess.decode_and_resize_naflex``, ``embed_image_list``), as
+    the clip server does."""
 
     def __init__(self, engine):
         self.engine = engine
+        cfg = engine.cfg
+        naflex = bool(cfg.max_num_patches)
         self.config = InferenceServerConfig(
             batch=engine.max_batch,
-            image_size=(engine.cfg.image_size, engine.cfg.image_size),
-            embedding_size=engine.cfg.d_emb,
-            model="siglip-so400m/14@384",
+            image_size=None if naflex else (cfg.image_size, cfg.image_size),
+            embedding_size=cfg.d_emb,
+            model="siglip2-so400m/16-naflex" if naflex else "siglip-so400m/14@384",
+            patch_size=cfg.patch_size if naflex else 0,
+            max_num_patches=cfg.max_num_patches,
         )
 
     async def connect(self):
@@ -103,9 +110,13 @@ class InProcessEmbedder:
         return self.engine.embed_texts(texts).astype(np.float16).astype(np.float32)
 
     async def embed_image_bytes(self, images: Sequence[bytes]) -> np.ndarray:
-        size = self.config.image_size
-        arrays = np.stack([decode_and_resize(b, size) for b in images])
-        out = self.engine.embed_image_arrays(arrays)
+        c = self.config
+        if c.max_num_patches:
+            pictures = [decode_and_resize_naflex(b, c.patch_size, c.max_num_patches) for b in images]
+            out = self.engine.embed_image_list(pictures)
+        else:
+            out = self.engine.embed_image_arrays(
+                np.stack([decode_and_resize(b, c.image_size) for b in images]))
         return out.astype(np.float16).astype(np.float32)
 
     async def close(self):

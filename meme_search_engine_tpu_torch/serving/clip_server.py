@@ -13,11 +13,17 @@ tokenised and embedded by the engine on that worker thread.
 
 Run: ``python -m meme_search_engine_tpu_torch.serving.clip_server config.json``
 Config keys: port, device ("cuda" by default, or "cpu"), max_batch_size,
-model_name ("tiny..." serves the tiny test geometry), checkpoint
-(optional HF ``model.safetensors`` or its directory), tokenizer
-(optional HF ``tokenizer.json``; without it the hash tokenizer),
-decode_threads, warmup. Without a checkpoint the weights are random-init
-from seed 0, as in the reference.
+model_name ("tiny..." serves the tiny test geometry; "siglip2-so400m/16-naflex"
+SigLIP 2 SO400M/16 NaFlex, its sequence cap the ``max_num_patches`` key,
+1024 by default), checkpoint (optional HF ``model.safetensors`` or its
+directory), tokenizer (optional HF ``tokenizer.json``; without it the
+hash tokenizer), decode_threads, warmup. Without a checkpoint the weights
+are random-init from seed 0, as in the reference. A NaFlex engine's
+decode pool resizes each picture to its own grid
+(``preprocess.decode_and_resize_naflex``) and the worker hands the list
+to ``EmbeddingEngine.embed_image_list``; ``/config`` then reports
+``patch_size`` and ``max_num_patches``, and ``image_size`` null: there is
+no one size to resize to (``wire.InferenceServerConfig``).
 
 ``msgpack``, ``aiohttp``, ``PIL`` and ``prometheus_client`` are imported
 where they are used, so the engine and :class:`InferenceWorker` import
@@ -38,7 +44,8 @@ from typing import List, Optional
 import numpy as np
 
 from ..utils.fp16 import encode_fp16_buffer
-from .preprocess import decode_and_resize
+from .preprocess import decode_and_resize, decode_and_resize_naflex
+from .wire import InferenceServerConfig
 
 __all__ = ["InferenceWorker", "make_app", "main"]
 
@@ -95,7 +102,9 @@ class InferenceWorker:
             kind, payload, callback = item
             try:
                 t0 = time.perf_counter()
-                if kind == "image":
+                if kind == "image" and self.engine.cfg.max_num_patches:
+                    out = self.engine.embed_image_list(payload)
+                elif kind == "image":
                     out = self.engine.embed_image_arrays(payload)
                 else:
                     out = self.engine.embed_texts(payload)
@@ -124,7 +133,16 @@ def make_app(engine, config: dict):
 
     max_batch = int(config.get("max_batch_size", 128))
     model_name = config.get("model_name", "siglip-so400m/14@384")
-    image_size = (engine.cfg.image_size, engine.cfg.image_size)
+    cfg = engine.cfg
+    if cfg.max_num_patches:
+        server = InferenceServerConfig(max_batch, None, cfg.d_emb, model_name,
+                                       patch_size=cfg.patch_size,
+                                       max_num_patches=cfg.max_num_patches)
+        decode = lambda img: decode_and_resize_naflex(img, cfg.patch_size, cfg.max_num_patches)  # noqa: E731
+    else:
+        image_size = (cfg.image_size, cfg.image_size)
+        server = InferenceServerConfig(max_batch, image_size, cfg.d_emb, model_name)
+        decode = lambda img: decode_and_resize(img, image_size)  # noqa: E731
     decode_pool = ThreadPoolExecutor(max_workers=int(config.get("decode_threads", 8)))
     worker = InferenceWorker(engine, model_name)
 
@@ -139,14 +157,10 @@ def make_app(engine, config: dict):
                 if len(images) > max_batch:
                     raise ValueError(f"max batch size is {max_batch}")
                 arrays = await asyncio.gather(
-                    *[
-                        loop.run_in_executor(
-                            decode_pool, decode_and_resize, img, image_size
-                        )
-                        for img in images
-                    ]
+                    *[loop.run_in_executor(decode_pool, decode, img) for img in images]
                 )
-                payload, kind = np.stack(arrays), "image"
+                payload = list(arrays) if cfg.max_num_patches else np.stack(arrays)
+                kind = "image"
             elif texts:
                 if len(texts) > max_batch:
                     raise ValueError(f"max batch size is {max_batch}")
@@ -182,14 +196,7 @@ def make_app(engine, config: dict):
 
     async def config_handler(_request):
         return web.Response(
-            body=msgpack.packb(
-                {
-                    "model": model_name,
-                    "batch": max_batch,
-                    "image_size": list(image_size),
-                    "embedding_size": engine.cfg.d_emb,
-                }
-            ),
+            body=msgpack.packb(server.to_msgpack_dict()),
             status=200,
             content_type="application/msgpack",
         )
@@ -222,22 +229,33 @@ def make_app(engine, config: dict):
 def build_engine(config: dict, tiny: Optional[bool] = None):
     """Engine from a service config: the checkpoint's weights, or
     random-init weights from seed 0. ``tiny`` selects the tiny test
-    geometry; by default a ``model_name`` starting with "tiny" does."""
+    geometry; by default a ``model_name`` starting with "tiny" does. A
+    ``model_name`` starting with "siglip2" and holding "naflex" selects
+    SigLIP 2 SO400M/16 NaFlex at the config's ``max_num_patches`` (1024 by
+    default; the tiny NaFlex geometry, 64, where ``tiny`` is set too)."""
+    import dataclasses
+
     import torch
 
     from ..models import siglip
     from .engine import EmbeddingEngine, resolve_device
 
     device = resolve_device(config.get("device", "cuda"))
+    name = config.get("model_name", "")
     if tiny is None:
-        tiny = config.get("model_name", "").startswith("tiny")
-    if tiny:
+        tiny = name.startswith("tiny")
+    naflex = name.startswith(("siglip2", "tiny-siglip2")) and "naflex" in name
+    if naflex:
+        base = siglip.tiny_naflex_test_config() if tiny else siglip.SO400M_16_NAFLEX_1024
+        cfg = dataclasses.replace(
+            base, max_num_patches=int(config.get("max_num_patches", base.max_num_patches)))
+    elif tiny:
         cfg = siglip.tiny_test_config()
     else:
         cfg = siglip.SO400M_14_384
     ckpt = config.get("checkpoint")
     if ckpt:
-        params = siglip.load_hf_siglip(ckpt, cfg)
+        params = (siglip.load_hf_siglip2 if naflex else siglip.load_hf_siglip)(ckpt, cfg)
     else:
         print("WARNING: no checkpoint configured; serving random-init weights", file=sys.stderr)
         gen = torch.Generator(device=device).manual_seed(0)

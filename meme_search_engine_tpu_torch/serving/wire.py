@@ -7,7 +7,9 @@ reference's frontend (clipfront2) and clients interoperate:
    - POST /        {"images": [bytes...]} | {"text": [str...]}
                    -> [fp16 LE bytes, ...]           (clip_server.py:151-170)
    - GET  /config  {"model", "batch", "image_size", "embedding_size"}
-                                                     (clip_server.py:176-183)
+                                                     (clip_server.py:176-183);
+                   a NaFlex server adds "patch_size" and
+                   "max_num_patches", with "image_size" null
    - GET  /        204 health                        (clip_server.py:185-187)
    - GET  /metrics Prometheus text                   (clip_server.py:189-191)
 
@@ -51,28 +53,42 @@ __all__ = [
 
 @dataclass
 class InferenceServerConfig:
-    """GET /config payload of the embedding server (common.rs:24-29)."""
+    """GET /config payload of the embedding server (common.rs:24-29).
+
+    A SigLIP 2 NaFlex server takes pictures at their own sizes: it sends
+    ``patch_size`` and ``max_num_patches`` as well, and ``image_size``
+    None, since there is no one size to resize to (a client shrinks each
+    picture by ``preprocess.shrink_for_naflex``). Other servers send the
+    reference's four keys only."""
 
     batch: int
-    image_size: Tuple[int, int]
+    image_size: Optional[Tuple[int, int]]
     embedding_size: int
     model: Any = None
+    patch_size: int = 0
+    max_num_patches: int = 0
 
     def to_msgpack_dict(self) -> dict:
-        return {
+        d = {
             "model": self.model,
             "batch": self.batch,
-            "image_size": tuple(self.image_size),
+            "image_size": None if self.image_size is None else tuple(self.image_size),
             "embedding_size": self.embedding_size,
         }
+        if self.max_num_patches:
+            d.update(patch_size=self.patch_size, max_num_patches=self.max_num_patches)
+        return d
 
     @classmethod
     def from_msgpack_dict(cls, d: dict) -> "InferenceServerConfig":
+        size = d["image_size"]
         return cls(
             batch=d["batch"],
-            image_size=tuple(d["image_size"]),
+            image_size=None if size is None else tuple(size),
             embedding_size=d["embedding_size"],
             model=d.get("model"),
+            patch_size=int(d.get("patch_size", 0)),
+            max_num_patches=int(d.get("max_num_patches", 0)),
         )
 
 

@@ -13,7 +13,8 @@ SS5). Here:
   report, the Timer(lib.rs:389-401) analogue for multi-phase jobs.
 - :func:`span` and :func:`count` — the program's own spans, with counts,
   at its layers' boundaries, recorded in memory only between
-  :func:`start_recording` and :func:`stop_recording` (off by default).
+  :func:`start_recording` and :func:`stop_recording` (off by default);
+  :func:`recorded` reads them meanwhile.
 - Prometheus metrics live next to each service (serving/*.py).
 
 Counterpart of ``meme_search_engine_tpu/utils/profiling.py``: ``trace``
@@ -203,6 +204,16 @@ def stop_recording() -> List[Span]:
     with rec.lock:
         rec.done = True
         return rec.spans
+
+
+def recorded() -> List[Span]:
+    """The spans that have ended so far in the recording that is on, in
+    the order they ended, which it keeps; raises if no recording is on."""
+    rec = _recorder
+    if rec is None:
+        raise RuntimeError("no recording is on")
+    with rec.lock:
+        return list(rec.spans)
 
 
 def is_recording() -> bool:

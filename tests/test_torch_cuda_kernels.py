@@ -83,6 +83,59 @@ def test_ln_matmul_kernel_key_mask(gen, b, sp, n_valid, h, c, d, k):
     _assert_close(got, want, 0.05)
 
 
+# The key mask with each sequence's own valid length (the NaFlex tower's):
+# 1024-row sequences whose lengths fall on and off the 128-row tiles and
+# the 8-row fragment groups (one row, eight, a whole sequence), and the
+# SO400M shape with every length 729, which must equal the one-scalar mask
+# bit for bit.
+@pytest.mark.parametrize(
+    "sp,lens",
+    [(1024, [1024, 960, 1, 1017]), (1024, [968, 1023, 8]), (736, [729, 729])],
+    ids=["naflex", "naflex_edges", "so400m_as_scalar"],
+)
+def test_ln_matmul_kernel_sequence_key_mask(gen, sp, lens):
+    h, c, d, k = 16, 80, 72, 1152
+    b = len(lens)
+    x, g, be = _rn(gen, b, sp, k), _rn(gen, k, mean=1.0, std=0.1), _rn(gen, k)
+    w, bias = _rn(gen, k, 3 * h * c, std=k**-0.5), _rn(gen, 3 * h * c)
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = fused.ln_matmul(x, g, be, w, bias, k_mask=(n, h, c, d))
+    torch.cuda.synchronize()
+    want = fused.ln_matmul_plain(x, g, be, w, bias, k_mask=(n, h, c, d))
+    for j, v in enumerate(lens):
+        assert torch.equal(got[j, v:, h * c: 2 * h * c], want[j, v:, h * c: 2 * h * c])
+    _assert_close(got, want, 0.05)
+    if len(set(lens)) == 1:
+        assert torch.equal(got, fused.ln_matmul(x, g, be, w, bias, k_mask=(lens[0], h, c, d)))
+
+
+def test_naflex_tower_at_depth_two_against_the_reference(gen):
+    """The SigLIP 2 NaFlex image tower at its published widths, two layers
+    deep, on the card (kernels 1, 7, 2, 3 with a key mask a picture)
+    against the plain fp32 reference of tests/siglip2_reference.py."""
+    import dataclasses
+
+    import numpy as np
+
+    import siglip2_reference as ref
+    from meme_search_engine_tpu_torch.models import siglip
+
+    cfg = dataclasses.replace(siglip.SO400M_16_NAFLEX_1024, depth=2, text_depth=1, vocab_size=512)
+    params = siglip.init_params(cfg, gen, "cuda")
+    grids = [(32, 32), (18, 55), (55, 18), (31, 33), (10, 100), (1, 7)]
+    rng = np.random.default_rng(0)
+    pics = [rng.integers(0, 256, (16 * h, 16 * w, 3), dtype=np.uint8) for h, w in grids]
+    buf = np.zeros((len(pics), cfg.max_num_patches * 768), np.uint8)
+    for j, pic in enumerate(pics):
+        buf[j, : pic.size] = pic.reshape(-1)
+    got = siglip.encode_image(siglip.prepare_params(params, cfg), torch.from_numpy(buf).cuda(), cfg,
+                              grids=np.array(grids))
+    want = ref.encode_pictures(ref.to_fp32(params["img"]), pics, 16, cfg.max_num_patches,
+                               cfg.num_heads)
+    torch.cuda.synchronize()
+    assert float((got - want).norm(dim=-1).max()) < 0.03
+
+
 # The LN kernel's normalised stages at 256-wide tiles (N = 512, 768, 2304,
 # 3840): K of one 64-deep stage, and K = 200 and 1160, whose last stage the
 # normaliser must leave zero past K; ragged M (40, 231, 300, 129 rows);
