@@ -18,8 +18,8 @@ about 1,100 s). ``python3 chip_smoke.py --train-scrape`` runs the
 ``train``, ``sharded_search`` and ``scrape`` phases alone (see
 ``train_scrape``), ``python3 chip_smoke.py --quality`` the ``quality``
 phase alone (see ``quality_only``), ``python3 chip_smoke.py --routes`` the
-``text_routes`` and ``model_parallel`` phases and the ``flash_mha`` check
-alone (see ``routes_only``), ``python3 chip_smoke.py --naflex`` the
+``text_routes`` phase and the ``flash_mha`` check alone (see
+``routes_only``), ``python3 chip_smoke.py --naflex`` the
 ``naflex`` phase alone (see ``naflex_only``).
 
 Phases, in order; any failure exits non-zero with no result line:
@@ -96,12 +96,7 @@ Phases, in order; any failure exits non-zero with no result line:
      QKV at N = 3456 and the fat route's with the key mask), 2, 3 and 7
      (SP = 64) at the routes' shapes against their plain versions at B = 2
      and 128, timed at 128 beside the bound and the library call. Then
-     ``model_parallel``: the engine over ``[[cuda:0, cuda:0]]`` with
-     ``model_parallel=True`` (two shards of the weights on the card),
-     16 images and 16 texts against the single-device engine (rtol =
-     atol = 2e-2, cos >= 0.999), each kernel once a shard a layer (the MAP
-     head's ``ln_matmul`` once a shard), each shard's weight bytes,
-     images/s at 128 and texts/s at 256; then ``flash_mha`` against
+     ``flash_mha`` against
      ``mha_xla`` at (2, 729, 16, 72) in fp32 (2e-3).
    - The small-scale service on the same engine (``service``): 1e5 rows
      in a temporary SQLite state (512 images embedded by the engine, the
@@ -196,8 +191,7 @@ Phases, in order; any failure exits non-zero with no result line:
    path's, one with the service's, one with the disk deployment's, one
    with the ``train``, ``sharded_search`` and ``scrape`` phases', one with
    the ``quality`` phase's, one with the ``naflex`` phase's, one with the
-   ``text_routes``, ``model_parallel``
-   and ``flash_mha`` results, then
+   ``text_routes`` and ``flash_mha`` results, then
    the card's name and power limit, then ``{"ok": true, "device": {...}}`` as
    the last line.
 """
@@ -3157,8 +3151,6 @@ TEXT_ROUTES = {
 def _tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(_tree_bytes(v) for v in tree)
     return tree.numel() * tree.element_size()
 
 
@@ -3245,8 +3237,8 @@ def text_routes(engine, launch_counts, reset_counts, n_text: int = 2 * B_TIME) -
         "text_mlp_padded": _tree_bytes(mlp),
         "text_mlp_unpadded": 2 * cfg.text_depth * cfg.text_width * cfg.text_mlp_dim * 2
         + cfg.text_depth * (cfg.text_mlp_dim + cfg.text_width) * 2,
-        "fused_qkv": _tree_bytes(txt["layouts"].get("qkv", [])),
-        "fat_qkv": _tree_bytes([blk["qkv"] for blk in txt["layouts"].get("fat", [])]),
+        "fused_qkv": _tree_bytes(txt["layouts"].get("qkv", {})),
+        "fat_qkv": _tree_bytes(txt["layouts"].get("fat", {}).get("qkv", {})),
     }
     log(f"text routes: weight bytes on the card {out['weight_bytes']}")
 
@@ -3265,81 +3257,6 @@ def text_routes(engine, launch_counts, reset_counts, n_text: int = 2 * B_TIME) -
     out["kernels"] = kernels
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"text routes: the phase took {out['phase_s']:.1f} s")
-    return out
-
-
-def model_parallel(engine, launch_counts, reset_counts) -> dict:
-    """The ``model_parallel`` phase: the SO400M engine (seed 0) over
-    ``mesh=[[d, d]]`` with ``model_parallel=True``, ``d`` the engine's card,
-    two model shards on one card: requests of 16 images and 16 texts against the
-    single-device ``engine`` (rtol = atol = 2e-2 and cos >= 0.999, as
-    tests/test_parallel.py:91-106), each kernel once a shard a layer (the
-    MAP head's ``ln_matmul`` once a shard); the weight bytes of each
-    shard; images/s at 128 and texts/s at 256 (median of three)."""
-    import torch
-
-    from meme_search_engine_tpu_torch.models import siglip
-    from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
-
-    t_phase = time.perf_counter()
-    cfg, dev = engine.cfg, engine.device
-    mem0 = torch.cuda.memory_allocated()
-    params = siglip.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    tp = EmbeddingEngine(params, cfg, max_batch=engine.max_batch, mesh=[[dev, dev]], model_parallel=True)
-    del params
-    tree = tp.params
-    shard_bytes = [_tree_bytes(tree["img"]["blocks"][c]) + _tree_bytes(tree["img"]["map_head"][c])
-                   + _tree_bytes(tree["txt"]["blocks"][c]) for c in range(2)]
-    shared = _tree_bytes({t: {k: v for k, v in tree[t].items() if k not in ("blocks", "map_head")}
-                          for t in ("img", "txt")})
-    log(f"model_parallel: 2 shards on {dev}, weight bytes a shard {shard_bytes} (blocks and MAP head), "
-        f"{shared} held once (embeddings, final LN, head); the engine took "
-        f"{(torch.cuda.memory_allocated() - mem0) / 2**30:.3f} GiB")
-    rng = np.random.default_rng(15)
-    r = cfg.image_size
-    images = rng.integers(0, 256, (16, r, r, 3), dtype=np.uint8)
-    words = ["meme", "cat", "dog", "gpu", "tpu", "funny", "sad", "frog", "reaction", "image"]
-    texts = [" ".join(rng.choice(words, size=rng.integers(1, 12))) for _ in range(16)]
-    zero = {k: 0 for k in launch_counts()}
-    out = {"shards": 2, "weight_bytes_per_shard": shard_bytes, "weight_bytes_shared": shared}
-    for kind, embed, single, item, per_bucket in (
-        ("image", tp.embed_image_arrays, engine.embed_image_arrays, images,
-         {"ln_matmul": 2 * cfg.depth + 2, "fat_vit_mha": 2 * cfg.depth,
-          "matmul_residual": 2 * cfg.depth, "ln_mlp_residual": 2 * cfg.depth}),
-        ("text", tp.embed_texts, engine.embed_texts, texts, {"fused_mha": 2 * cfg.text_depth}),
-    ):
-        reset_counts()
-        got = embed(item)
-        counts = launch_counts()
-        check_counts(f"model_parallel {kind}", counts, {**zero, **per_bucket}, 1)
-        want = single(item)
-        err = float(np.abs(got - want).max())
-        cos = float((got * want).sum(-1).min())
-        ok = np.allclose(got, want, rtol=2e-2, atol=2e-2) and cos >= 0.999
-        log(f"model_parallel {kind}: 16 against the single-device engine: max |d| {err:.3e}, "
-            f"cos min {cos:.6f} {'ok' if ok else 'FAIL'}; launches {counts}")
-        if not ok:
-            fail(f"the model-parallel engine disagrees with one device on {kind}s: {err}, cos {cos}")
-        out[kind] = {"max_abs_err": err, "cos_min": cos,
-                     "launches": {k: v for k, v in counts.items() if v}}
-    batch = rng.integers(0, 256, (B_TIME, r, r, 3), dtype=np.uint8)
-    many = [" ".join(rng.choice(words, size=rng.integers(1, 20))) for _ in range(2 * B_TIME)]
-    for kind, embed, item in (("images_per_s", tp.embed_image_arrays, batch),
-                              ("texts_per_s", tp.embed_texts, many)):
-        embed(item)
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            embed(item)
-            times.append(time.perf_counter() - t0)
-        out[kind] = len(item) / float(np.median(times))
-        out[f"{kind}_times_s"] = times
-        log(f"model_parallel: {kind} {out[kind]:.1f} ({len(item)} a call, median of 3)")
-    del tp, tree
-    torch.cuda.empty_cache()
-    out["phase_s"] = time.perf_counter() - t_phase
-    log(f"model_parallel: the phase took {out['phase_s']:.1f} s")
     return out
 
 
@@ -3515,13 +3432,12 @@ def train_scrape() -> int:
 
 
 def routes_only() -> int:
-    """``python3 chip_smoke.py --routes``: the ``text_routes`` and
-    ``model_parallel`` phases and the blocked attention's check alone, on a
-    fresh SO400M engine (seed 0) after the kernels' build; one JSON line,
-    then the card's name and power limit."""
+    """``python3 chip_smoke.py --routes``: the ``text_routes`` phase and the
+    blocked attention's check alone, on a fresh SO400M engine (seed 0)
+    after the kernels' build; one JSON line, then the card's name and power
+    limit."""
     smi, _, _, engine, launch_counts, reset_counts = _alone()
     out = {"text_routes": text_routes(engine, launch_counts, reset_counts),
-           "model_parallel": model_parallel(engine, launch_counts, reset_counts),
            "flash_mha": flash_check(engine.device)}
     print(json.dumps(out), flush=True)
     print(smi, flush=True)
@@ -4127,10 +4043,8 @@ def main(disk_n: int = DISK_N) -> int:
         + f"; sum {split_total:.1f} ms of {text_ms / text_buckets:.1f} ms per bucket")
     log(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
-    # the text tower's other routes, the model-parallel engine and the
-    # blocked attention
+    # the text tower's other routes and the blocked attention
     routes = text_routes(engine, launch_counts, reset_counts)
-    mp = model_parallel(engine, launch_counts, reset_counts)
     flash = flash_check(dev)
 
     # the small-scale service on the same engine
@@ -4285,7 +4199,7 @@ def main(disk_n: int = DISK_N) -> int:
     keys = ("max_abs_err", "max_abs_err_b128", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "peak_share")
     # each kernel at the text routes' shapes, and its launches a bucket on
-    # each text route and on the model-parallel engine's requests
+    # each text route
     text_rows = {"ln_matmul": ("text_qkv", "text_fat_qkv"), "matmul_residual": ("text_o",),
                  "ln_mlp_residual": ("text",), "fat_vit_mha_packed": ("text",)}
     kernels = []
@@ -4297,7 +4211,6 @@ def main(disk_n: int = DISK_N) -> int:
             e[part] = routes["kernels"][f"{name}[{part}]"]
         e["launches_text_routes_per_bucket"] = {
             r: v["launches_per_bucket"].get(counter, 0) for r, v in routes["routes"].items()}
-        e["launches_model_parallel"] = {k: mp[k]["launches"].get(counter, 0) for k in ("image", "text")}
         if name == "ln_matmul":
             e["map_kv"] = {k: results["ln_matmul[map_kv]"][k] for k in keys}
             e["normalised_copy_route_ms"] = results[name]["normalised_copy_route_ms"]
@@ -4361,7 +4274,7 @@ def main(disk_n: int = DISK_N) -> int:
     print(json.dumps(train_paths), flush=True)
     print(json.dumps({"quality": qual}), flush=True)
     print(json.dumps({"naflex": naflex}), flush=True)
-    print(json.dumps({"text_routes": routes, "model_parallel": mp, "flash_mha": flash}), flush=True)
+    print(json.dumps({"text_routes": routes, "flash_mha": flash}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -55,22 +55,10 @@ package's tree (``models/convert.py``) or loaded from a HuggingFace
 checkpoint (``load_hf_siglip``; SigLIP 2's ``load_hf_siglip2``).
 ``prepare_params`` replaces the image tower's leaves with the kernel
 layouts once at load time, and pads the text tower's MLP for the kernels.
-
-Model parallelism in one process (``serving/engine.py``): where a tree
-holds a *list* of shards in place of ``blocks`` (and of the image tower's
-``map_head``), each shard a column's Megatron slice (q, k, v and fc1 by
-output, o and fc2 by input; ``parallel/mesh.model_shards``), every
-encoder runs each sub-block once a shard on the shard's own heads or
-hidden slice, on the shard's device, and sums the row-parallel outputs by
-chaining them: each shard adds its term onto the sum of the shards before
-it (with the kernels, through ``matmul_residual``'s residual input), so
-the bias and the residual are added once, by shard 0, and no extra pass
-runs. One shard (a dict, not a list) is the single-device model.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 from typing import Any, Dict
@@ -294,13 +282,8 @@ def _fat_qkv_weights(attn: Params, num_heads: int, head_dim: int):
     )
 
 
-def _shards(tree) -> list:
-    """The shards of a model-parallel subtree (a list), or [tree]."""
-    return tree if isinstance(tree, list) else [tree]
-
-
 def _is_prepared(img: Params) -> bool:
-    return "qkv" in _shards(img["blocks"])[0]
+    return "qkv" in img["blocks"]
 
 
 def _uses_fat_path(cfg: SigLIPConfig) -> bool:
@@ -323,8 +306,7 @@ def prepare_params(params: Params, cfg: SigLIPConfig) -> Params:
     leaves the plain route's math as it is: gelu(0) = 0 meets zero rows of
     fc2), and an empty ``layouts`` dict holds the fused and fat routes'
     packed QKV weights, built on each route's first use
-    (:func:`_text_layout`). A shard's head count is read off its q
-    weights, so a model-parallel column's slice is prepared alike.
+    (:func:`_text_layout`).
     """
     out = dict(params)
     img = params.get("img")
@@ -341,8 +323,8 @@ def prepare_params(params: Params, cfg: SigLIPConfig) -> Params:
 
 
 def _fat_qkv(attn: Params, head_dim: int) -> Params:
-    """The packed fat q|k|v projection (:func:`_fat_qkv_weights`) over the
-    heads the q weights hold (a model-parallel shard holds some)."""
+    """The packed fat q|k|v projection (:func:`_fat_qkv_weights`) over
+    every head."""
     fat = _fat_qkv_weights(attn, attn["q"]["w"].shape[-1] // head_dim, head_dim)
     return {"w": torch.cat([w for w, _ in fat], dim=-1).contiguous(),
             "b": torch.cat([b for _, b in fat], dim=-1).contiguous()}
@@ -387,9 +369,9 @@ def _prepare_image(img: Params, cfg: SigLIPConfig) -> Params:
     }
 
 
-def _text_layout(txt: Params, name: str, head_dim: int) -> list:
+def _text_layout(txt: Params, name: str, head_dim: int) -> Params:
     """The packed QKV weights of a text route, a dict of stacked (depth,
-    ...) tensors a shard: ``"qkv"``, q|k|v (D, 3D) for ``_encoder_text``;
+    ...) tensors: ``"qkv"``, q|k|v (D, 3D) for ``_encoder_text``;
     ``"fat"``, the image tower's block layout (:func:`prepare_params`)
     with the fat q|k|v for ``_encoder_fat``, whose other leaves are the
     tree's own. Built on the route's first use and kept in the prepared
@@ -397,10 +379,9 @@ def _text_layout(txt: Params, name: str, head_dim: int) -> list:
     if "layouts" not in txt:
         raise ValueError("the text tower's fused and fat routes need prepare_params(params, cfg) first")
     if name not in txt["layouts"]:
-        txt["layouts"][name] = [
-            _packed_qkv(blk) if name == "qkv" else _fat_text_blocks(blk, head_dim)
-            for blk in _shards(txt["blocks"])
-        ]
+        blocks = txt["blocks"]
+        txt["layouts"][name] = (_packed_qkv(blocks) if name == "qkv"
+                                else _fat_text_blocks(blocks, head_dim))
     return txt["layouts"][name]
 
 
@@ -483,49 +464,15 @@ def _attn(
     return _dense(o, p["o"]) if par is None else par.row_dense(o, p["o"])
 
 
-def _device(tree) -> torch.device:
-    """The device of a tree's first leaf (a shard lies on one device)."""
-    while not isinstance(tree, torch.Tensor):
-        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
-    return tree.device
-
-
-def _on(device: torch.device):
-    """The device's context for a kernel launch (a launch goes to the
-    current device); nothing for the CPU."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-
-
-def _row_parallel(acc, shards: list, term, inp: torch.Tensor):
-    """``acc`` plus every shard's row-parallel term, chained in shard
-    order on each shard's device: ``term(shard, inp, acc)`` returns acc
-    plus the shard's term (or the term alone where acc is None), its
-    arguments moved to the shard's device. Returns on ``inp``'s device;
-    with one shard on that device, exactly ``term(shard, inp, acc)``."""
-    for shard in shards:
-        dev = _device(shard)
-        with _on(dev):
-            acc = term(shard, inp.to(dev), None if acc is None else acc.to(dev))
-    return acc.to(inp.device)
-
-
-def _plus(acc, y):
-    return y if acc is None else acc + y
-
-
 def _encoder(
-    x: torch.Tensor, blocks, num_heads: int, attention=mha, par=None
+    x: torch.Tensor, blocks: Params, num_heads: int, attention=mha, par=None
 ) -> torch.Tensor:
     """Pre-LN transformer encoder over stacked block params; bf16
-    residual adds, as the reference's scan step. ``blocks``: one tree, or
-    a list of model-parallel shards (each a column's heads and hidden
-    slice)."""
-    for layer in zip(*(_layers(s) for s in _shards(blocks))):
-        h = _layer_norm(x, layer[0]["ln1"])
-        x = _row_parallel(x, layer, lambda blk, h, acc: acc + _attn(
-            h, blk["attn"], num_heads, attention=attention, par=par), h)
-        h = _layer_norm(x, layer[0]["ln2"])
-        x = _row_parallel(x, layer, lambda blk, h, acc: acc + _mlp(h, blk["mlp"], par), h)
+    residual adds, as the reference's scan step."""
+    for blk in _layers(blocks):
+        x = x + _attn(_layer_norm(x, blk["ln1"]), blk["attn"], num_heads,
+                      attention=attention, par=par)
+        x = x + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"], par)
     return x
 
 
@@ -539,28 +486,23 @@ def _layers(tree) -> list:
     return list(torch.unbind(tree))
 
 
-def _map_head(x: torch.Tensor, p, num_heads: int, attention=mha) -> torch.Tensor:
+def _map_head(x: torch.Tensor, p: Params, num_heads: int, attention=mha) -> torch.Tensor:
     """MAP (multihead attention pooling) head over every row of x: the
     probe attends through ``_attn``, whose single query takes the plain
-    attention route. ``p``: one tree or a list of model-parallel shards."""
+    attention route."""
     b, _, d = x.shape
-    shards = _shards(p)
-    probe = shards[0]["probe"][None].expand(b, 1, d).to(x.dtype)
-    y = _row_parallel(None, shards, lambda ps, xs, acc: _plus(acc, _attn(
-        probe.to(xs.device), ps, num_heads, kv=xs, attention=attention)), x)
-    y = _row_parallel(y, shards, lambda ps, h, acc: acc + _mlp(h, ps["mlp"]),
-                      _layer_norm(y, shards[0]["ln"]))
+    probe = p["probe"][None].expand(b, 1, d).to(x.dtype)
+    y = _attn(probe, p, num_heads, kv=x, attention=attention)
+    y = y + _mlp(_layer_norm(y, p["ln"]), p["mlp"])
     return y[:, 0]
 
 
 def _encoder_fat(
-    x: torch.Tensor, blocks, num_heads: int, n_valid
+    x: torch.Tensor, blocks: Params, num_heads: int, n_valid
 ) -> torch.Tensor:
     """Padded-sequence encoder over (B, SP, D), rows >= n_valid padding
     (an int, or an int32 (B,) tensor of each sequence's own on x's device);
-    ``blocks`` in the layout of :func:`prepare_params` (or a list of
-    model-parallel shards in it, each its own heads' fat QKV, its rows of
-    o and its hidden slice).
+    ``blocks`` in the layout of :func:`prepare_params`.
 
     The key mask rides the k constant column, written by ln_matmul's
     epilogue into every pad row; pad rows of the residual stream are
@@ -569,28 +511,22 @@ def _encoder_fat(
     d = x.shape[-1]
     dh = d // num_heads
     c = fat_width(dh)
-    shards = _shards(blocks)
-
-    def attend(p, x, acc, i):
-        heads = p["qkv"]["w"].shape[-1] // (3 * c)
-        lens = n_valid.to(x.device) if isinstance(n_valid, torch.Tensor) else n_valid
+    ln1, qkv, o, ln2, fc1, fc2 = (
+        blocks[k] for k in ("ln1", "qkv", "o", "ln2", "fc1", "fc2")
+    )
+    for i in range(ln1["g"].shape[0]):
         qkvf = ln_matmul(
-            x, p["ln1"]["g"][i], p["ln1"]["b"][i], p["qkv"]["w"][i], p["qkv"]["b"][i],
-            k_mask=(lens, heads, c, dh),
+            x, ln1["g"][i], ln1["b"][i], qkv["w"][i], qkv["b"][i],
+            k_mask=(n_valid, num_heads, c, dh),
         )
-        attn = fat_vit_mha_packed(qkvf, heads, dh)
+        attn = fat_vit_mha_packed(qkvf, num_heads, dh)
         del qkvf
-        return matmul_residual(attn, p["o"]["w"][i], p["o"]["b"][i], acc)
-
-    def mlp(p, x, acc, i):
-        return ln_mlp_residual(
-            x, p["ln2"]["g"][i], p["ln2"]["b"][i],
-            p["fc1"]["w"][i], p["fc1"]["b"][i], p["fc2"]["w"][i], p["fc2"]["b"][i], res=acc,
+        x = matmul_residual(attn, o["w"][i], o["b"][i], x)
+        del attn  # freed before the MLP's hidden scratch is allocated
+        x = ln_mlp_residual(
+            x, ln2["g"][i], ln2["b"][i],
+            fc1["w"][i], fc1["b"][i], fc2["w"][i], fc2["b"][i],
         )
-
-    for i in range(shards[0]["ln1"]["g"].shape[0]):
-        x = _row_parallel(x, shards, lambda p, x, acc: attend(p, x, acc, i), x)
-        x = _row_parallel(x, shards, lambda p, x, acc: mlp(p, x, acc, i), x)
     return x
 
 
@@ -604,41 +540,32 @@ def _key_mask(n_valid, sp: int, device) -> torch.Tensor:
 
 
 def _map_head_fat(
-    x: torch.Tensor, lnf: Params, p, num_heads: int, n_valid
+    x: torch.Tensor, lnf: Params, p: Params, num_heads: int, n_valid
 ) -> torch.Tensor:
     """Final LN + MAP pooling head; the LN and the packed k|v projection
-    run as one ln_matmul (one a model-parallel shard, over its heads), the
-    probe attention over the n_valid keys (an int, or each sequence's own
-    in a (B,) tensor) is plain torch."""
+    run as one ln_matmul, the probe attention over the n_valid keys (an
+    int, or each sequence's own in a (B,) tensor) is plain torch."""
     b, sp, d = x.shape
     dh = d // num_heads
-    shards = _shards(p)
-
-    def attend(ps, x, acc):
-        hd = ps["q"]["w"].shape[1]  # this shard's heads x dh
-        kv = ln_matmul(x, lnf["g"].to(x.device), lnf["b"].to(x.device),
-                       ps["kv"]["w"], ps["kv"]["b"])  # (B, SP, 2 hd)
-        q = _dense(ps["probe"].to(x.dtype), ps["q"]).reshape(hd // dh, dh)
-        k = kv[:, :, :hd].reshape(b, sp, hd // dh, dh)
-        v = kv[:, :, hd:].reshape(b, sp, hd // dh, dh)
-        scores = torch.einsum("hd,bkhd->bhk", q.float(), k.float()) * (1.0 / dh**0.5)
-        mask = _key_mask(n_valid, sp, x.device)
-        scores = scores.masked_fill(~mask[:, None, :], float("-inf"))
-        probs = torch.softmax(scores, dim=-1)
-        o = torch.einsum(
-            "bhk,bkhd->bhd", probs.to(v.dtype).float(), v.float()
-        ).to(x.dtype)
-        return _plus(acc, _dense(o.reshape(b, 1, hd), ps["o"]))
-
-    y = _row_parallel(None, shards, attend, x)
-    y = _row_parallel(y, shards, lambda ps, h, acc: acc + _mlp(h, ps["mlp"]),
-                      _layer_norm(y, shards[0]["ln"]))
+    kv = ln_matmul(x, lnf["g"], lnf["b"], p["kv"]["w"], p["kv"]["b"])  # (B, SP, 2D)
+    q = _dense(p["probe"].to(x.dtype), p["q"]).reshape(num_heads, dh)
+    k = kv[:, :, :d].reshape(b, sp, num_heads, dh)
+    v = kv[:, :, d:].reshape(b, sp, num_heads, dh)
+    scores = torch.einsum("hd,bkhd->bhk", q.float(), k.float()) * (1.0 / dh**0.5)
+    mask = _key_mask(n_valid, sp, x.device)
+    scores = scores.masked_fill(~mask[:, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum(
+        "bhk,bkhd->bhd", probs.to(v.dtype).float(), v.float()
+    ).to(x.dtype)
+    y = _dense(o.reshape(b, 1, d), p["o"])
+    y = y + _mlp(_layer_norm(y, p["ln"]), p["mlp"])
     return y[:, 0]
 
 
 def _encoder_text(
     x: torch.Tensor,
-    blocks,
+    blocks: Params,
     num_heads: int,
     qkv=None,
     *,
@@ -647,12 +574,11 @@ def _encoder_text(
     fused_mlp: bool = False,
 ) -> torch.Tensor:
     """The text tower's short-sequence encoder (JAX ``_encoder_text``),
-    over (B, S, D) and the text tower's blocks (or a list of
-    model-parallel shards of them).
+    over (B, S, D) and the text tower's blocks.
 
     LayerNorm, the projections and the MLP are per row, so each runs on
     the (B*S, D) rows as they lie. QKV is one packed q|k|v projection
-    (``qkv``: its stacked weights a shard, :func:`_text_layout`; built
+    (``qkv``: its stacked weights, :func:`_text_layout`; built
     here from the blocks when not given); the attention always runs the
     fused attention kernel (``fused_mha``), reading q, k and v in place
     from the packed (B, S, 3, H, Dh) view. Each other sub-block takes its
@@ -669,32 +595,23 @@ def _encoder_text(
     """
     b, s, d = x.shape
     dh = d // num_heads
-    shards = _shards(blocks)
-    qkvs = [_packed_qkv(sh) for sh in shards] if qkv is None else _shards(qkv)
-
-    def attend(pair, x, acc):
-        blk, w = pair
+    qkv = _packed_qkv(blocks) if qkv is None else qkv
+    for blk, w in zip(_layers(blocks), _layers(qkv)):
         if fused_qkv:
             y = ln_matmul(x, blk["ln1"]["g"], blk["ln1"]["b"], w["w"], w["b"])
         else:
             y = _dense(_layer_norm(x, blk["ln1"]), w)
-        heads = y.shape[-1] // (3 * dh)
-        y = y.reshape(b, s, 3, heads, dh)
-        o = fused_mha(y[:, :, 0], y[:, :, 1], y[:, :, 2]).reshape(b, s, heads * dh)
+        y = y.reshape(b, s, 3, num_heads, dh)
+        o = fused_mha(y[:, :, 0], y[:, :, 1], y[:, :, 2]).reshape(b, s, d)
         po = blk["attn"]["o"]
-        return matmul_residual(o, po["w"], po["b"], acc) if fused_o else acc + _dense(o, po)
-
-    def mlp(pair, x, acc):
-        blk = pair[0]
+        x = matmul_residual(o, po["w"], po["b"], x) if fused_o else x + _dense(o, po)
+        del y, o  # freed before the MLP's hidden activations are allocated
         if fused_mlp:
             fc1, fc2 = blk["mlp"]["fc1"], blk["mlp"]["fc2"]
-            return ln_mlp_residual(x, blk["ln2"]["g"], blk["ln2"]["b"], fc1["w"], fc1["b"],
-                                   fc2["w"], fc2["b"], res=acc)
-        return acc + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"])
-
-    for layer in zip(*(zip(_layers(sh), _layers(w)) for sh, w in zip(shards, qkvs))):
-        x = _row_parallel(x, layer, attend, x)
-        x = _row_parallel(x, layer, mlp, x)
+            x = ln_mlp_residual(x, blk["ln2"]["g"], blk["ln2"]["b"], fc1["w"], fc1["b"],
+                                fc2["w"], fc2["b"])
+        else:
+            x = x + _mlp(_layer_norm(x, blk["ln2"]), blk["mlp"])
     return x
 
 

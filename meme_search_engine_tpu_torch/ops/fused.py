@@ -272,8 +272,7 @@ def ln_mlp_residual(
     residual. The scratch's round trip through device memory is what this
     version pays over the reference's on-chip intermediate. The hidden
     width M must be a multiple of 128 (``pad_hidden`` at load time).
-    ``res`` apart from x is a tensor-parallel shard's partial sum: the
-    shard's hidden slice adds onto the sum of the shards before it.
+    ``res`` apart from x adds the MLP onto another residual stream.
     """
     res = x if res is None else res
     _refuse_grad("ln_mlp_residual", x, gamma, beta, w1, b1, w2, b2, res)

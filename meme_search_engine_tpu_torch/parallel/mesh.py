@@ -16,9 +16,6 @@ mesh is two sets of process groups over the ranks:
 tuples (``()`` replicated, ``(None, MODEL)`` the second dimension split
 over ``model``); ``shard_params`` keeps on each rank the slice that the
 JAX ``NamedSharding`` puts on the device at the same mesh position.
-``model_shards`` cuts a whole tree into the model columns of the serving
-engine, which is one process over a grid of devices
-(``serving/engine.py``).
 """
 
 from __future__ import annotations
@@ -34,7 +31,6 @@ __all__ = [
     "MODEL",
     "Mesh",
     "make_mesh",
-    "model_shards",
     "siglip_param_specs",
     "shard_params",
     "split_dim",
@@ -201,43 +197,3 @@ def shard_params(params: dict, mesh: Mesh) -> dict:
     """This rank's slice of a whole parameter tree, per
     :func:`siglip_param_specs`, on the mesh's device (a copy)."""
     return tree_map(lambda x, s: _local(x, s, mesh), params, siglip_param_specs())
-
-
-def _column(tree, specs, c: int, n: int):
-    """Column ``c`` of ``n`` of a subtree, per its specs; a row-parallel
-    layer's bias (its weight split by input) is kept by column 0 only,
-    the others hold zeros, so a sum over the columns adds it once."""
-    if isinstance(tree, dict):
-        out = {k: _column(v, specs[k], c, n) for k, v in tree.items()}
-        w = specs.get("w")
-        if c and w is not None and split_dim(w) == len(w) - 2:
-            out["b"] = torch.zeros_like(out["b"])
-        return out
-    dim = split_dim(specs)
-    if dim is None:
-        return tree
-    if tree.shape[dim] % n:
-        raise ValueError(f"dimension {dim} of {tuple(tree.shape)} does not split {n} ways")
-    part = tree.shape[dim] // n
-    return tree.narrow(dim, c * part, part).contiguous()
-
-
-def model_shards(params: dict, n: int) -> list:
-    """The ``n`` model columns of a whole tree (``img`` and ``txt``), for
-    one process serving over a row of ``n`` devices: column ``c`` holds
-    the Megatron slice that :func:`siglip_param_specs` gives model
-    coordinate ``c`` of every leaf of the towers' ``blocks`` and of the
-    MAP head (q, k, v and fc1 by output, o and fc2 by input; a row-parallel
-    bias on column 0 only), and every other leaf whole. Copies of the
-    split leaves; the whole ones are shared."""
-    specs = siglip_param_specs()
-    return [
-        {
-            tower: {
-                k: _column(v, specs[tower][k], c, n) if k in ("blocks", "map_head") else v
-                for k, v in params[tower].items()
-            }
-            for tower in ("img", "txt") if tower in params
-        }
-        for c in range(n)
-    ]

@@ -139,8 +139,8 @@ def test_naflex_tower_at_depth_two_against_the_reference(gen):
 # The LN kernel's normalised stages at 256-wide tiles (N = 512, 768, 2304,
 # 3840): K of one 64-deep stage, and K = 200 and 1160, whose last stage the
 # normaliser must leave zero past K; ragged M (40, 231, 300, 129 rows);
-# then the model-parallel shards' widths, QKV 1920 and fc1 2176, which
-# take 256-wide tiles too (the fewest tiles; the last one part empty).
+# then N = 1920 and 2176, off the 256-column tile, which take 256-wide
+# tiles too (the fewest tiles; the last one part empty).
 @pytest.mark.parametrize(
     "b,sp,k,n",
     [(1, 40, 64, 512), (3, 77, 200, 768), (1, 300, 1160, 2304), (1, 129, 1152, 3840),
@@ -500,10 +500,10 @@ def _to_cuda(tree):
 
 
 # The text tower's routes: its GEMMs at S = 64 (QKV N = 3456 = 27 x 128,
-# no key mask; o; the MLP at the padded 4352, with a residual apart from x
-# as a model-parallel shard chains it) from 1 to 128 texts, the fat
-# attention at SP = 64 (half a 128-row tile a text, every key valid) over
-# 16 heads and a shard's 8, and kernel 1's key mask over a shard's heads
+# no key mask; o; the MLP at the padded 4352, with a residual apart from
+# x) from 1 to 128 texts, the fat attention at SP = 64 (half a 128-row
+# tile a text, every key valid) over 16 heads and 8, and kernel 1's key
+# mask over 8 heads
 @pytest.mark.parametrize("b", [1, 2, 3, 128])
 def test_gemms_at_the_text_shapes(gen, b):
     d, s = 1152, 64
@@ -528,7 +528,7 @@ def test_fat_attention_kernel_at_the_text_shape(gen, b, h):
                   attention.fat_vit_mha_packed_plain(qkvf, h, 72), 2e-2)
 
 
-def test_ln_matmul_key_mask_over_a_shards_heads(gen):
+def test_ln_matmul_key_mask_over_eight_heads(gen):
     b, sp, n_valid, h, c, d, k = 2, 736, 729, 8, 80, 72, 1152
     x, g, be = _rn(gen, b, sp, k), _rn(gen, k, mean=1.0, std=0.1), _rn(gen, k)
     w, bias = _rn(gen, k, 3 * h * c, std=k**-0.5), _rn(gen, 3 * h * c)
@@ -537,20 +537,16 @@ def test_ln_matmul_key_mask_over_a_shards_heads(gen):
                   fused.ln_matmul_plain(x, g, be, w, bias, k_mask=km), 0.05)
 
 
-def test_text_routes_and_model_parallel_on_the_card(monkeypatch):
+def test_text_routes_on_the_card(monkeypatch):
     """The tiny config on the card: the text tower through MSE_TEXT_FUSED=1
     with every sub-block fused (kernels 1, 5, 2 and 3 once a layer) and
-    through attn_impl="fat_interpret" (1, 7, 2, 3), and the engine over
-    [["cuda", "cuda"]] with model_parallel (each kernel once a shard a
-    layer), each against the CPU plain path."""
+    through attn_impl="fat_interpret" (1, 7, 2, 3), each against the CPU
+    plain path."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
 
-    import numpy as np
-
     from meme_search_engine_tpu_torch.models import siglip
-    from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
 
     cfg = siglip.tiny_test_config()
     params = siglip.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
@@ -578,19 +574,6 @@ def test_text_routes_and_model_parallel_on_the_card(monkeypatch):
     assert ((fgot * fwant).sum(-1)).min() > 0.999
     assert fused.launches == {"ln_matmul": 2, "matmul_residual": 2, "ln_mlp_residual": 2}
     assert attention.launches == {"fat_vit_mha": 2, "fused_mha": 0, "fat_vit_mha_packed_proj": 0}
-    single = EmbeddingEngine(fparams, fat, max_batch=4, device="cpu")
-    tp = EmbeddingEngine(fparams, fat, max_batch=4, mesh=[["cuda", "cuda"]], model_parallel=True)
-    imgs = np.random.default_rng(7).integers(0, 256, (4, 28, 28, 3), dtype=np.uint8)
-    toks4 = np.random.default_rng(8).integers(0, fat.vocab_size, (4, fat.text_len))
-    fused.reset_launches()
-    attention.reset_launches()
-    for a, b in ((tp.embed_image_arrays(imgs), single.embed_image_arrays(imgs)),
-                 (tp.embed_tokens(toks4), single.embed_tokens(toks4))):
-        assert np.isfinite(a).all() and ((a * b).sum(-1)).min() > 0.999
-    # one bucket of 4 a tower: 2 shards x 2 layers, both towers (the text's
-    # fat route), the MAP head's k|v once a shard
-    assert fused.launches == {"ln_matmul": 4 + 4 + 2, "matmul_residual": 8, "ln_mlp_residual": 8}
-    assert attention.launches["fat_vit_mha"] == 8
 
 
 @pytest.mark.parametrize("c", [16, 256])

@@ -14,10 +14,8 @@ package in this process.
   onto 4 x 1 and 1 x 4 it is bit-equal to the global tree (params and
   AdamW's moments); another logical shape or dtype is refused.
 - ``dryrun_multichip(4)``, and the engine's device list equal to one
-  device (tests/test_parallel.py's rtol 2e-2, atol 2e-3); its model-
-  parallel grid ``[["cpu", "cpu"]]`` equal to one device and to JAX
-  ``encode_image`` under ``shard_params`` on a 4 x 2 mesh (rtol and atol
-  2e-2, tests/test_parallel.py:91-106).
+  device on every route of both towers (tests/test_parallel.py's rtol
+  2e-2, atol 2e-3); rows of devices are refused.
 """
 
 import dataclasses
@@ -239,10 +237,19 @@ def test_dryrun_multichip_four_processes(capfd):
     assert "equals the exact oracle" in out
 
 
-def test_engine_device_list_equals_one_device():
+def _fat_text_cfg(attn_impl):
+    """tiny_fat_test_config with a fat-capable text tower (16 heads of 7,
+    tests/test_siglip.py:116-119), both towers 112 wide into d_emb."""
+    return dataclasses.replace(ts.tiny_fat_test_config(attn_impl), text_width=112,
+                               text_num_heads=16, text_len=16, d_emb=112)
+
+
+@pytest.mark.parametrize("attn_impl", ["auto", "xla", "fat_interpret"])
+def test_engine_device_list_equals_one_device(attn_impl, monkeypatch):
     """Buckets split over ["cpu", "cpu"] (each bucket that divides by 2)
-    give the single device's embeddings."""
-    cfg = ts.tiny_test_config()
+    give the single device's embeddings on every route of both towers;
+    the text tower's fat layout is built once a replica tree."""
+    cfg = _fat_text_cfg(attn_impl)
     params = ts.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     single = EmbeddingEngine(params, cfg, max_batch=16, device="cpu")
     multi = EmbeddingEngine(params, cfg, max_batch=16, mesh=["cpu", "cpu"])
@@ -256,62 +263,29 @@ def test_engine_device_list_equals_one_device():
     np.testing.assert_allclose(multi.embed_image_arrays(imgs), single.embed_image_arrays(imgs),
                                rtol=2e-2, atol=2e-3)
     assert used == [(0, 8), (1, 8), (0, 1)]  # the bucket of 16 split, the bucket of 1 not
-    texts = ["a", "b c", "d e f"]
-    np.testing.assert_allclose(multi.embed_texts(texts), single.embed_texts(texts), rtol=2e-2, atol=2e-3)
-    # model_parallel on a grid of one row: two shards of the weights
-    tp = EmbeddingEngine(params, cfg, max_batch=16, mesh=[["cpu", "cpu"]], model_parallel=True)
-    assert len(tp.params["img"]["blocks"]) == 2 and len(tp.params["txt"]["blocks"]) == 2
-    np.testing.assert_allclose(tp.embed_image_arrays(imgs), single.embed_image_arrays(imgs),
-                               rtol=2e-2, atol=2e-2)
-    np.testing.assert_allclose(tp.embed_texts(texts), single.embed_texts(texts), rtol=2e-2, atol=2e-2)
+    texts = ["a", "b c", "d e f"]  # buckets of 2 (split) and 1
+    want = single.embed_texts(texts)
+    built = []
+    fat_blocks = ts._fat_text_blocks
+    monkeypatch.setattr(ts, "_fat_text_blocks", lambda *a: built.append(a) or fat_blocks(*a))
+    np.testing.assert_allclose(multi.embed_texts(texts), want, rtol=2e-2, atol=2e-3)
+    multi.embed_texts(texts)
+    trees = {id(r): r for r in multi._replicas}.values()  # one tree a distinct device
+    if attn_impl == "fat_interpret":
+        assert all(isinstance(r["txt"]["layouts"]["fat"], dict) for r in trees)
+        assert len(built) == len(trees)  # on a tree's first call, then kept
+    else:
+        assert not built and all(r["txt"]["layouts"] == {} for r in trees)
 
 
-def _fat_text_cfg(attn_impl):
-    """tiny_fat_test_config with a fat-capable text tower (16 heads of 7,
-    tests/test_siglip.py:116-119), both towers 112 wide into d_emb."""
-    return dataclasses.replace(ts.tiny_fat_test_config(attn_impl), text_width=112,
-                               text_num_heads=16, text_len=16, d_emb=112)
-
-
-@pytest.mark.parametrize("attn_impl", ["auto", "xla", "fat_interpret"])
-def test_engine_model_parallel_equals_one_device(attn_impl):
-    """Each shard of [["cpu", "cpu"]] holds half the heads, o rows, fc1
-    columns and fc2 rows of every block and of the MAP head (a row-
-    parallel bias on shard 0 only); every route of both towers gives the
-    single device's embeddings (tests/test_parallel.py's 2e-2)."""
-    cfg = _fat_text_cfg(attn_impl)
-    params = ts.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
-    single = EmbeddingEngine(params, cfg, max_batch=8, device="cpu")
-    tp = EmbeddingEngine(params, cfg, max_batch=8, mesh=[["cpu", "cpu"]], model_parallel=True)
-    shards = tp.params["img"]["blocks"]
-    if attn_impl != "xla":  # each shard's fat QKV over its 8 heads
-        assert [s["qkv"]["w"].shape[-1] for s in shards] == [3 * 8 * 8] * 2
-        assert not shards[1]["o"]["b"].any() and torch.equal(shards[0]["o"]["b"], params["img"]["blocks"]["attn"]["o"]["b"])
-    assert [m["mlp"]["fc1"]["w"].shape[-1] for m in tp.params["img"]["map_head"]] == [64, 64]
-    imgs = np.random.default_rng(2).integers(0, 256, (3, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
-    np.testing.assert_allclose(tp.embed_image_arrays(imgs), single.embed_image_arrays(imgs), rtol=2e-2, atol=2e-2)
-    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (3, cfg.text_len)).astype(np.int32)
-    np.testing.assert_allclose(tp.embed_tokens(toks), single.embed_tokens(toks), rtol=2e-2, atol=2e-2)
-    if attn_impl == "fat_interpret":  # the text tower's fat QKV, built once a shard
-        assert len(tp.params["txt"]["layouts"]["fat"]) == 2
-
-
-def test_engine_model_parallel_matches_jax_shard_params():
-    """The port's one-process model-parallel engine against the JAX
-    package's encode_image and encode_text under shard_params on a 4 x 2
-    mesh (tests/test_parallel.py:91-106: rtol and atol 2e-2)."""
-    jcfg = js.tiny_test_config()
-    params = js.init_params(jax.random.PRNGKey(1), jcfg)
-    mesh42 = jmesh.make_mesh(8, model_parallel=2)
-    sharded = jmesh.shard_params(params, mesh42)
-    imgs = np.random.default_rng(1).integers(0, 256, (4, jcfg.image_size, jcfg.image_size, 3), dtype=np.uint8)
-    toks = np.random.default_rng(4).integers(0, jcfg.vocab_size, (4, jcfg.text_len)).astype(np.int32)
-    e_img = np.asarray(js.encode_image(sharded, jnp.asarray(imgs), jcfg))
-    e_txt = np.asarray(js.encode_text(sharded, jnp.asarray(toks), jcfg))
-    tp = EmbeddingEngine(convert.tree_from_numpy(jax.tree.map(np.asarray, params)), ts.tiny_test_config(),
-                         max_batch=4, mesh=[["cpu", "cpu"]], model_parallel=True)
-    np.testing.assert_allclose(tp.embed_image_arrays(imgs), e_img, rtol=2e-2, atol=2e-2)
-    np.testing.assert_allclose(tp.embed_tokens(toks), e_txt, rtol=2e-2, atol=2e-2)
+def test_engine_refuses_rows_of_devices():
+    """The engine's mesh is a list of devices, one data replica each; a
+    row of devices (a list inside the list) is refused by name."""
+    cfg = ts.tiny_test_config()
+    params = ts.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for mesh in ([["cpu", "cpu"]], ["cpu", ("cpu",)]):
+        with pytest.raises(ValueError, match="list of devices"):
+            EmbeddingEngine(params, cfg, max_batch=4, mesh=mesh)
 
 
 def test_restore_refuses_another_logical_shape_or_dtype(tmp_path):

@@ -224,6 +224,19 @@ def test_a_bucket_in_parts_gives_the_same_embeddings(tree, monkeypatch):
     assert len(d2h) == 4 and all(s.parent in buckets for s in d2h)
 
 
+def test_naflex_engine_device_list_equals_one_device(tree):
+    """A NaFlex engine over ["cpu", "cpu"] splits a bucket of mixed grids
+    that divides by 2 across its replicas, each replica's part packed
+    into a staging slot of its own, and gives one device's embeddings."""
+    single = EmbeddingEngine(tree, CFG, max_batch=8, device="cpu")
+    multi = EmbeddingEngine(tree, CFG, max_batch=8, mesh=["cpu", "cpu"])
+    pics = _pictures(GRIDS + [(3, 20), (2, 2), (7, 9)], seed=11)  # buckets of 8 and 1
+    np.testing.assert_allclose(multi.embed_image_list(pics), single.embed_image_list(pics), atol=1e-6)
+    # (pictures, (replica, first row)): the bucket of 8 as 4 on each, the bucket of 1 on the first
+    assert set(multi._staging) == {(4, (0, 0)), (4, (1, 0)), (1, (0, 0))}
+    assert set(single._staging) == {(8, (0, 0)), (1, (0, 0))}
+
+
 def test_hf_siglip2_matches_the_reference(tmp_path):
     transformers = pytest.importorskip("transformers")
     from safetensors.torch import save_file

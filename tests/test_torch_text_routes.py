@@ -29,7 +29,6 @@ from meme_search_engine_tpu.ops import attention as ja
 from meme_search_engine_tpu_torch.models import convert
 from meme_search_engine_tpu_torch.models import siglip as ts
 from meme_search_engine_tpu_torch.ops import attention as ta
-from meme_search_engine_tpu_torch.parallel.mesh import model_shards
 
 ROUTES = {"default": (), "qkv_o": ("QKV", "O"), "all": ("QKV", "O", "MLP")}
 
@@ -112,7 +111,7 @@ def test_encode_text_fat_route_matches_jax():
     e_t = ts.encode_text(tp, torch.from_numpy(toks), tcfg).numpy()
     np.testing.assert_allclose(e_t, e_j, atol=5e-2)
     assert ((e_t * e_j).sum(-1) > 0.999).all()
-    (fat,) = tp["txt"]["layouts"]["fat"]
+    fat = tp["txt"]["layouts"]["fat"]
     assert set(fat) == {"ln1", "qkv", "o", "ln2", "fc1", "fc2"}
     assert fat["fc1"] is tp["txt"]["blocks"]["mlp"]["fc1"]  # the MLP is held once
     (wq, bq), (wk, bk), (wv, bv) = jax.vmap(lambda a: js._fat_qkv_weights(a, 16, 7))(
@@ -120,7 +119,7 @@ def test_encode_text_fat_route_matches_jax():
     np.testing.assert_array_equal(fat["qkv"]["w"].float().numpy(),
                                   np.asarray(jnp.concatenate([wq, wk, wv], axis=2), np.float32))
     ts.encode_text(tp, torch.from_numpy(toks), tcfg)
-    assert tp["txt"]["layouts"]["fat"][0] is fat
+    assert tp["txt"]["layouts"]["fat"] is fat
     # the plain route of the same tree
     xla = dataclasses.replace(tcfg, attn_impl="xla")
     e_x = ts.encode_text(tp, torch.from_numpy(toks), xla).numpy()
@@ -163,23 +162,6 @@ def test_text_mlp_padded_in_place_of_the_source():
                                ts._embed_text(source, toks, cfg).numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("route", ["default", "all"])
-def test_encoder_text_over_model_shards(route):
-    """Two model shards (half the heads and half the hidden width each,
-    the row-parallel terms chained) give the single tree's encoder output
-    within the encoder tests' atol 5e-2 (tests/test_siglip.py:182-262):
-    the chain rounds each partial sum to bf16, once more than one tree."""
-    cfg = ts.tiny_test_config()
-    whole = ts.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
-    shards = [s["txt"]["blocks"] for s in model_shards({"txt": whole["txt"]}, 2)]
-    assert shards[1]["attn"]["o"]["b"].abs().sum() == 0 and shards[0]["attn"]["q"]["w"].shape[-1] == 32
-    x = torch.randn((2, cfg.text_len, cfg.text_width), generator=torch.Generator().manual_seed(5)).to(torch.bfloat16)
-    flags = {f"fused_{k}": route == "all" for k in ("qkv", "o", "mlp")}
-    one = ts._encoder_text(x, whole["txt"]["blocks"], cfg.text_num_heads, **flags).float().numpy()
-    two = ts._encoder_text(x, shards, cfg.text_num_heads, **flags).float().numpy()
-    np.testing.assert_allclose(two, one, atol=5e-2)
-
-
 @pytest.mark.parametrize("shape,block", [((2, 24, 4, 16), 8), ((1, 29, 2, 8), 16)],
                          ids=["even", "ragged_last_block"])
 def test_flash_mha_matches_jax(shape, block):
@@ -197,4 +179,4 @@ def test_fat_layout_ok_equals_jax():
     grid = [(h, d, sp) for h in (1, 2, 4, 8, 12, 16, 32) for d in (7, 8, 15, 16, 64, 72, 80, 128)
             for sp in (16, 24, 64, 200, 736)]
     assert [ta.fat_layout_ok(*g) for g in grid] == [ja.fat_layout_ok(*g) for g in grid]
-    assert ta.fat_layout_ok(16, 72, 64) and ta.fat_layout_ok(8, 72, 736)  # SO400M's text, a tp shard
+    assert ta.fat_layout_ok(16, 72, 64) and ta.fat_layout_ok(8, 72, 736)  # SO400M's text; 8 heads at SP = 736
