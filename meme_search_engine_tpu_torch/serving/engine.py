@@ -17,13 +17,18 @@ split across them (JAX ``engine.py:115-121``); one that does not runs on
 the first. Tensor parallelism is the train step's (``parallel/train.py``,
 one process a device); both towers fit one card whole.
 
-A SigLIP 2 NaFlex engine (``cfg.max_num_patches``) takes pictures at
-their own sizes (:meth:`EmbeddingEngine.embed_image_list`). A bucket runs
-in parts of ``NAFLEX_PART`` pictures: each part's pictures are packed on
-host threads into one staging buffer (pinned on a card, kept for the
-next call), a picture's pixels a row and the grids after them
-(:func:`naflex_views`), go to the card in one copy and are launched
-before the next part is packed.
+Pictures go to a card through staging buffers, pinned and kept for the
+next call, so that their copy runs at the bus's rate and not at a
+pageable copy's. Square pictures (:meth:`EmbeddingEngine.embed_image_arrays`)
+are staged a bucket at a time, as they come: uint8 ``(b, H, W, 3)``, or
+float at the model's resolution. A SigLIP 2 NaFlex engine
+(``cfg.max_num_patches``) takes pictures at their own sizes
+(:meth:`EmbeddingEngine.embed_image_list`). A bucket runs in parts of
+``NAFLEX_PART`` pictures: each part's pictures are packed on host threads
+into one staging buffer (pinned on a card, kept for the next call), a
+picture's pixels a row and the grids after them (:func:`naflex_views`),
+go to the card in one copy and are launched before the next part is
+packed.
 """
 
 from __future__ import annotations
@@ -162,7 +167,7 @@ class EmbeddingEngine:
             self._replicas = [replicas[d] for d in self.devices]
             self.params = self._replicas[0]
             self.tokenizer = load_tokenizer(tokenizer_path, cfg.vocab_size, cfg.text_len)
-            self._staging: dict = {}  # (rows, slot) -> a NaFlex packing buffer
+            self._staging: dict = {}  # (pictures, slot) -> a staging buffer
             self._staging_lock = threading.Lock()
             self._pack_pool: Optional[ThreadPoolExecutor] = None
 
@@ -210,9 +215,10 @@ class EmbeddingEngine:
         replica, slot)``, where given, makes the host tensor and the
         keywords of ``fn`` under an ``engine.pack`` span before
         ``engine.h2d``; else the chunk is the host array. With ``pack``, a
-        replica's chunk runs in parts of ``part`` rows, each packed, copied
-        and launched before the next is packed, then all fetched: ``slot``
-        is (replica, the part's first row)."""
+        replica's chunk runs in parts of ``part`` rows (one part without
+        ``part``), each packed, copied and launched before the next is
+        packed, then all fetched: ``slot`` is (replica, the part's first
+        row)."""
         n = len(batch)
         nd = len(self.devices)
 
@@ -248,15 +254,41 @@ class EmbeddingEngine:
 
         If H,W differ from the model resolution the resize runs on the
         device; float input in [-1,1] at the model resolution skips it.
+        The buckets and spans are :meth:`_run_bucketed`'s; on a card each
+        bucket's pictures (a replica's share) are copied into a pinned
+        staging buffer (:meth:`_pack_images`, under ``engine.pack``) and
+        go to the card in one copy.
         """
         pre = images.dtype != np.uint8
         if self.cfg.max_num_patches:
             if pre:
                 raise ValueError("a NaFlex tower takes uint8 pictures")
             return self.embed_image_list(list(images))
-        return self._run_bucketed(
-            lambda p, x: siglip.encode_image(p, x, self.cfg, preprocessed=pre), images
-        )
+        with self._staging_lock:
+            return self._run_bucketed(
+                lambda p, x: siglip.encode_image(p, x, self.cfg, preprocessed=pre), images,
+                pack=self._pack_images)
+
+    def _pack_images(self, images: np.ndarray, replica: int, slot) -> torch.Tensor:
+        """A bucket's square pictures, (b, H, W, 3) of any dtype, as the
+        host tensor: on a card copied as they are into a pinned staging
+        buffer (one a ``slot`` and size, so that no buffer is written
+        while its copy may be pending; kept for the next call, and
+        replaced by a larger one when pictures need more) by one
+        ``copy_``, which torch splits over its intra-op threads; on a CPU
+        engine the array itself. Counts on ``engine.pack``: ``images``,
+        ``bytes``."""
+        src = torch.from_numpy(np.ascontiguousarray(images))
+        if self.devices[replica].type == "cuda":
+            buf = self._staging.get((len(images), slot))
+            if buf is None or buf.numel() < images.nbytes:
+                buf = self._staging[(len(images), slot)] = torch.empty(
+                    images.nbytes, dtype=torch.uint8, pin_memory=True)
+            src = buf[:images.nbytes].view(src.dtype).view(src.shape).copy_(src)
+        if profiling.is_recording():
+            profiling.count("images", len(images))
+            profiling.count("bytes", images.nbytes)
+        return src
 
     def embed_image_list(self, pictures: Sequence[np.ndarray]) -> np.ndarray:
         """SigLIP 2 NaFlex: uint8 (P h_i, P w_i, 3) pictures, each already

@@ -471,6 +471,47 @@ def test_tiny_engine_serves_both_towers_on_the_card():
                                   "fat_vit_mha_packed_proj": 0}
 
 
+def test_engine_stages_a_bucket_of_128_in_pinned_memory_on_the_card():
+    """A bucket of 128 square pictures is packed into one pinned staging
+    buffer and copied in once (no pageable byte), gives the embeddings of
+    the unstaged, pageable copy bit for bit, and keeps its buffer for the
+    next call; float pictures at the model's resolution take the same
+    slot, in a larger buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from meme_search_engine_tpu_torch.models import siglip
+    from meme_search_engine_tpu_torch.serving.engine import EmbeddingEngine
+    from meme_search_engine_tpu_torch.utils import profiling
+
+    cfg = siglip.tiny_test_config()
+    params = siglip.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = EmbeddingEngine(params, cfg, max_batch=128, device="cuda")
+    r = cfg.image_size
+    imgs = np.random.default_rng(3).integers(0, 256, (128, r, r, 3), dtype=np.uint8)
+    floats = (imgs / 127.5 - 1.0).astype(np.float32)
+    for x in (imgs, floats):
+        pre = x.dtype != np.uint8
+        plain = card._run_bucketed(
+            lambda p, y: siglip.encode_image(p, y, cfg, preprocessed=pre), x)
+        profiling.start_recording()
+        try:
+            staged = card.embed_image_arrays(x)
+        finally:
+            spans = profiling.stop_recording()
+        (h2d,) = [s for s in spans if s.name == "engine.h2d"]
+        (pack,) = [s for s in spans if s.name == "engine.pack"]
+        assert h2d.counts == {"bytes": x.nbytes, "pageable_bytes": 0}
+        assert pack.counts == {"images": 128, "bytes": x.nbytes}
+        np.testing.assert_array_equal(staged, plain)
+        (buf,) = card._staging.values()
+        assert set(card._staging) == {(128, (0, 0))} and buf.is_pinned()
+        assert buf.numel() == x.nbytes
+        card.embed_image_arrays(x)
+        assert card._staging[(128, (0, 0))].data_ptr() == buf.data_ptr()
+
+
 def test_xla_image_route_on_the_card():
     """attn_impl="xla": the plain encoder and MAP head, whose
     self-attention (S=729 at SO400M, 4 here) takes the fused kernel and

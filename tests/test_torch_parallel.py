@@ -257,7 +257,8 @@ def test_engine_device_list_equals_one_device(attn_impl, monkeypatch):
                                              dtype=np.uint8)
     used = []
     run = multi._run
-    multi._run = lambda fn, replica, chunk: used.append((replica, len(chunk))) or run(fn, replica, chunk)
+    multi._run = lambda fn, replica, chunk, *part: (used.append((replica, len(chunk)))
+                                                    or run(fn, replica, chunk, *part))
     # tests/test_parallel.py's tolerances: a bucket split in two may round
     # its bf16 products in another order
     np.testing.assert_allclose(multi.embed_image_arrays(imgs), single.embed_image_arrays(imgs),
@@ -276,6 +277,27 @@ def test_engine_device_list_equals_one_device(attn_impl, monkeypatch):
         assert len(built) == len(trees)  # on a tree's first call, then kept
     else:
         assert not built and all(r["txt"]["layouts"] == {} for r in trees)
+
+
+def test_engine_device_list_packs_each_replica_apart():
+    """Over ["cpu", "cpu"] each replica's share of a bucket of square
+    pictures is packed apart, into a staging slot of its own on a card,
+    (replica, first row), and the embeddings are one device's."""
+    cfg = ts.tiny_test_config()
+    params = ts.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    single = EmbeddingEngine(params, cfg, max_batch=8, device="cpu")
+    multi = EmbeddingEngine(params, cfg, max_batch=8, mesh=["cpu", "cpu"])
+    imgs = np.random.default_rng(1).integers(0, 256, (9, cfg.image_size, cfg.image_size, 3),
+                                             dtype=np.uint8)  # buckets of 8 and 1
+    packed = []
+    pack = multi._pack_images
+    multi._pack_images = lambda chunk, replica, slot: (packed.append((len(chunk), replica, slot))
+                                                       or pack(chunk, replica, slot))
+    np.testing.assert_allclose(multi.embed_image_arrays(imgs), single.embed_image_arrays(imgs),
+                               rtol=2e-2, atol=2e-3)
+    # the bucket of 8 as 4 on each replica, the bucket of 1 on the first
+    assert packed == [(4, 0, (0, 0)), (4, 1, (1, 0)), (1, 0, (0, 0))]
+    assert multi._staging == single._staging == {}  # a CPU engine stages nothing
 
 
 def test_engine_refuses_rows_of_devices():

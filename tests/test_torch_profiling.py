@@ -155,8 +155,9 @@ def engine():
 
 def test_engine_call_spans(engine, recording):
     """7 images at max_batch 4: one engine.call (rows 7, buckets 3) over
-    buckets of 4, 2 and 1, each with h2d, launch and d2h in that order;
-    the h2d bytes are the pictures'."""
+    buckets of 4, 2 and 1, each with pack, h2d, launch and d2h in that
+    order; the packed and copied bytes are the pictures' (pageable on a
+    CPU engine, which stages nothing)."""
     eng, _, cfg = engine
     r = cfg.image_size
     imgs = np.random.default_rng(5).integers(0, 256, (7, r, r, 3), dtype=np.uint8)
@@ -171,13 +172,46 @@ def test_engine_call_spans(engine, recording):
     h2d = 0
     for b in buckets:
         kids = sorted((s for s in spans if s.parent == b.id), key=lambda s: s.start_ns)
-        assert [k.name for k in kids] == ["engine.h2d", "engine.launch", "engine.d2h"]
+        assert [k.name for k in kids] == ["engine.pack", "engine.h2d", "engine.launch", "engine.d2h"]
         assert all(b.start_ns <= k.start_ns <= k.end_ns <= b.end_ns for k in kids)
         n = b.counts["rows"] * r * r * 3
-        assert kids[0].counts["bytes"] == kids[0].counts["pageable_bytes"] == n
-        assert kids[2].counts == {"bytes": b.counts["rows"] * cfg.d_emb * 4}
-        h2d += kids[0].counts["bytes"]
+        assert kids[0].counts == {"images": b.counts["rows"], "bytes": n}
+        assert kids[1].counts["bytes"] == kids[1].counts["pageable_bytes"] == n
+        assert kids[3].counts == {"bytes": b.counts["rows"] * cfg.d_emb * 4}
+        h2d += kids[1].counts["bytes"]
     assert h2d == 7 * r * r * 3
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_square_pictures_are_packed_a_bucket_at_a_time(engine, dtype):
+    """Square pictures are packed a bucket at a time, one engine.pack
+    inside each bucket, and give the embeddings of the unpacked path bit
+    for bit; uint8 pictures and float ones at the model's resolution
+    (``preprocessed``) alike. A CPU engine stages nothing: its host
+    tensor is the pictures' own memory."""
+    eng, _, cfg = engine
+    r = cfg.image_size
+    imgs = np.random.default_rng(7).integers(0, 256, (7, r, r, 3), dtype=np.uint8)
+    if dtype == "float32":
+        imgs = (imgs / 127.5 - 1.0).astype(np.float32)
+    pre = dtype != "uint8"
+    plain = eng._run_bucketed(
+        lambda p, x: siglip.encode_image(p, x, cfg, preprocessed=pre), imgs)
+    profiling.start_recording()
+    try:
+        packed = eng.embed_image_arrays(imgs)  # buckets 4, 2, 1
+    finally:
+        spans = profiling.stop_recording()
+    np.testing.assert_array_equal(packed, plain)
+    buckets = {s.id: s for s in spans if s.name == "engine.bucket"}
+    packs = [s for s in spans if s.name == "engine.pack"]
+    assert [p.counts["images"] for p in packs] == [4, 2, 1]
+    assert [p.counts["bytes"] for p in packs] == [k * imgs[0].nbytes for k in (4, 2, 1)]
+    assert [buckets[p.parent].counts["rows"] for p in packs] == [4, 2, 1]
+    h2d = [s for s in spans if s.name == "engine.h2d"]
+    assert [s.counts["bytes"] for s in h2d] == [p.counts["bytes"] for p in packs]
+    assert eng._staging == {}
+    assert eng._pack_images(imgs[:4], 0, (0, 0)).data_ptr() == imgs.ctypes.data
 
 
 def test_embeddings_are_the_same_recording_or_not(engine):
